@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's device Pedersen commit on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: the device Pedersen commit, then
+the IVC fold step (RecursiveSNARK.prove_step) at a 2^17-constraint primary.
 
-    python3 chip_smoke.py                # full run: 2^16 Pallas points, window 16
-    python3 chip_smoke.py --log-n 12     # a shorter run
+    python3 chip_smoke.py                # full run: 2^16 commit, 2^17 fold step
+    python3 chip_smoke.py --log-n 12 --fold-log-cons 15   # a shorter run
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
-    python3 chip_smoke.py --rehearse --log-n 10   # CPU dry run, plain versions
+    python3 chip_smoke.py --rehearse --log-n 10 --fold-log-cons 14
+                                         # CPU dry run, plain versions
 
 Phases (each fatal; on failure the script exits non-zero and prints no
 result line):
@@ -25,7 +27,19 @@ result line):
    compared bitwise;
 4. timing with CUDA events (median of 5 runs after warm-up): each
    kernel and its plain version, and the msm3m workload (sequential and
-   batch-of-4 points/s).
+   batch-of-4 points/s);
+5. the fold step: PublicParams.setup(Pallas, Vesta, a squaring chain of
+   2^17 - 9,818 constraints) on CUDA, then RecursiveSNARK.new, 5
+   prove_steps (the bump, the tape build, 3 timed replays, split by the
+   profiling phases) and verify, whose output must be z0^(2^(5 * squares));
+   the counts are reset just before new and read just after verify, every
+   kernel of the path must have launched and B6 on every step that folds;
+6. fold-step checks: one fresh primary witness committed by msm_device2,
+   msm_device3 and the host Pippenger (equal), B6 in all three modes against
+   its plain version on the stage inputs of that commit (bitwise, equal
+   flags) and timed, msm_device2 timed at the witness size and on the
+   msm3m key and scalars, and a repeated-base msm_device2 that must take the
+   complete rerun.
 
 The last lines are the card's name and power limit, one JSON object
 {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -57,6 +71,7 @@ REPLACES = {
     "xyzz_double": "nova_tpu/fields/pallas_kernels.py:360",
     "accum": "nova_tpu/ops/msm3.py:221",
     "bucket_reduce": "nova_tpu/ops/msm2.py:666",
+    "stage": "nova_tpu/ops/msm2.py:432",
 }
 SOURCE = {
     "mont_mul": "nova_tpu_torch/csrc/field_kernels.cu",
@@ -64,14 +79,30 @@ SOURCE = {
     "xyzz_double": "nova_tpu_torch/csrc/field_kernels.cu",
     "accum": "nova_tpu_torch/csrc/msm_kernels.cu",
     "bucket_reduce": "nova_tpu_torch/csrc/msm_kernels.cu",
+    "stage": "nova_tpu_torch/csrc/stage_kernel.cu",
 }
+# kernels the commit's main path must launch (phase 2), and the fold
+# step's (phase 5)
+COMMIT_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "accum", "bucket_reduce")
+FOLD_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "accum", "bucket_reduce", "stage")
+# constraints of the primary augmented circuit around a trivial step
+# circuit (tests/test_ivc.py); the squaring chain adds one per square
+AUGMENTED_PRIMARY_CONS = 9818
+FOLD_STEPS = 5
+# Montgomery products per active lane per round of a B6 stage
+STAGE_MULS = {"complete": 26, "fast": 14, "fast0": 6}
 
 
 class PhaseError(RuntimeError):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("== phase"):
+        msg = f"{msg}  [{time.perf_counter() - _T0:.1f} s since start]"
     print(msg, flush=True)
 
 
@@ -147,17 +178,18 @@ def host_msm_parallel(curve, scalars, bases, workers: int):
     return acc
 
 
-def profile_commits(torch, engine, ck, v, reps: int) -> None:
-    """torch.profiler over `reps` sequential commits: device-busy share of
-    the wall time and the kernels that take the device time."""
+def profile_window(torch, fn, reps: int, what: str) -> None:
+    """torch.profiler over `reps` calls of fn (after one warm-up call):
+    device-busy share of the wall time and the kernels that take the
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine.commit(ck, v)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            engine.commit(ck, v)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
@@ -176,12 +208,222 @@ def profile_commits(torch, engine, ck, v, reps: int) -> None:
     if not rows:
         log("profile: the profiler recorded no device time (not measured)")
         return
-    log(f"profile: {reps} commits, wall {wall_us / reps / 1e3:.3f} ms/commit, "
-        f"device busy {busy / reps / 1e3:.3f} ms/commit "
+    log(f"profile: {reps} {what}, wall {wall_us / reps / 1e3:.3f} ms each, "
+        f"device busy {busy / reps / 1e3:.3f} ms each "
         f"({100 * busy / wall_us:.1f}% of wall)")
     for dev_us, count, key in rows[:15]:
-        log(f"profile:   {dev_us / reps / 1e3:8.3f} ms/commit  "
+        log(f"profile:   {dev_us / reps / 1e3:8.3f} ms each  "
             f"{count // reps:5d} calls  {key[:90]}")
+
+
+def square_chain(num_squares: int):
+    """benches/recursive_snark.py's step circuit: y <- y^2, num_squares
+    times, one constraint and one variable per square."""
+    from nova_tpu_torch.nova.circuit import StepCircuit
+
+    class SquareChain(StepCircuit):
+        def arity(self):
+            return 1
+
+        def synthesize(self, cs, z):
+            y = z[0]
+            for _ in range(num_squares):
+                y = y.square(cs)
+            return [y]
+
+    return SquareChain()
+
+
+def stage_bound(masks, mode: str, affine: bool):
+    """B6's least time on this run's inputs: each input read once (2 or 4
+    coordinates, the masks, the live flags) and 4 coordinates written, or
+    the multiply-adds of the adds that this run's masks make active."""
+    rounds, n = masks.shape
+    nbytes = n * ((2 if affine else 4) * ROW + 4 * rounds + (4 if affine else 0) + 4 * ROW)
+    active = masks.ne(0).sum(dim=1).tolist()
+    muls = [STAGE_MULS["fast0"] if mode == "fast0" and r == 0
+            else STAGE_MULS["fast" if mode == "fast0" else mode]
+            for r in range(rounds)]
+    return bound(nbytes, MUL_OPS * sum(a * m for a, m in zip(active, muls)))
+
+
+def sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
+    """Phases 5 and 6: the fold step's main path, then its checks and
+    timings. Returns the stage kernel's row fields and the fold-step
+    numbers."""
+    import numpy as np
+
+    from nova_tpu_torch import _build, profiling
+    from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.nova.ivc import PublicParams, RecursiveSNARK
+    from nova_tpu_torch.ops import msm2, msm3
+    from nova_tpu_torch.provider.engines import PallasEngine, VestaEngine
+
+    reps = 1 if args.rehearse else 5
+    log(f"== phase 5: fold step (squaring chain, primary 2^{args.fold_log_cons} "
+        f"constraints, {FOLD_STEPS} prove_steps)")
+    squares = (1 << args.fold_log_cons) - AUGMENTED_PRIMARY_CONS
+    circuit = square_chain(squares)
+    t0 = time.perf_counter()
+    pp = PublicParams.setup(PallasEngine, VestaEngine, circuit, device=dev)
+    setup_s = time.perf_counter() - t0
+    log(f"setup: constraints {pp.num_constraints()}, variables {pp.num_variables()}, "
+        f"keys {len(pp.ck_primary)}/{len(pp.ck_secondary)} on {pp.ck_primary.device}, "
+        f"{setup_s:.1f} s")
+    if pp.num_constraints()[0] != 1 << args.fold_log_cons:
+        raise PhaseError(f"primary has {pp.num_constraints()[0]} constraints")
+
+    z0 = [2]
+    os.environ["NOVA_PROFILE"] = "1"
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rs = RecursiveSNARK.new(pp, circuit, z0)
+    sync(torch)
+    new_s = time.perf_counter() - t0
+    step_s, step_stage, step_phases = [], [], []
+    for _ in range(FOLD_STEPS):
+        before = _build.LAUNCHES["stage"]
+        profiling.global_reset()
+        t0 = time.perf_counter()
+        rs.prove_step(pp, circuit)
+        sync(torch)
+        step_s.append(time.perf_counter() - t0)
+        step_stage.append(_build.LAUNCHES["stage"] - before)
+        step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
+    t0 = time.perf_counter()
+    out = rs.verify(pp, FOLD_STEPS, z0)
+    sync(torch)
+    verify_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    del os.environ["NOVA_PROFILE"]
+    log(f"new {new_s:.2f} s; prove_step s {[round(s, 3) for s in step_s]}; "
+        f"verify {verify_s:.2f} s")
+    log(f"fold-step launches {launches}; B6 launches per prove_step {step_stage}")
+    p = pallas.scalar.p
+    want = pow(z0[0], pow(2, squares * FOLD_STEPS, p - 1), p)
+    if out != [want]:
+        raise PhaseError(f"verify returned {out}, expected [{want}]")
+    log(f"verify == z0^(2^({squares} * {FOLD_STEPS})) mod p")
+    if args.profile:
+        profile_window(torch, lambda: rs.prove_step(pp, circuit), 2, "prove_steps")
+    if not args.rehearse:
+        missing = [k for k in FOLD_KERNELS if launches[k] == 0]
+        if missing:
+            raise PhaseError(f"kernels not launched on the fold step: {missing}")
+        if any(c == 0 for c in step_stage[1:]):
+            raise PhaseError(f"a folding prove_step launched no B6: {step_stage}")
+    replay = step_phases[2:]
+    phases = {k: statistics.median(ph.get(k, 0.0) for ph in replay) for k in replay[0]}
+    fold = {
+        "primary_constraints": pp.num_constraints()[0],
+        "primary_variables": pp.num_variables()[0],
+        "secondary_constraints": pp.num_constraints()[1],
+        "setup_s": setup_s, "new_s": new_s,
+        "prove_step_ms": statistics.median(step_s[2:]) * 1e3,
+        "prove_step_all_ms": [s * 1e3 for s in step_s],
+        "phase_ms": phases, "verify_ms": verify_s * 1e3,
+        "stage_launches_per_step": step_stage, "launches": launches,
+    }
+    log("fold step: " + json.dumps(fold))
+
+    log("== phase 6: fold-step kernels and MSMs")
+    t6 = time.perf_counter()
+    witness = list(rs._wgen_primary.cs.aux_assignment)
+    if args.rehearse:
+        witness = witness[:512]
+    n = len(witness)
+    db = pp.ck_primary.device_bases2(n)
+    captured = []
+    real_stage = msm2.stage
+
+    def recording_stage(*a, **k):
+        captured.append((a, k))
+        return real_stage(*a, **k)
+
+    msm2.stage = recording_stage
+    try:
+        got2 = msm2.msm_device2(witness, device_bases=db, reuse=True)
+    finally:
+        msm2.stage = real_stage
+    got3 = msm3.msm_device3(witness, device_bases=db)
+    host = host_msm_parallel(pallas, witness, pp.ck_primary.ck[:n], workers)
+    if not got2 == got3 == host:
+        raise PhaseError(f"fresh witness: msm_device2 {got2}, msm_device3 {got3}, host {host}")
+    log(f"fresh witness ({n} scalars): msm_device2 == msm_device3 == host msm")
+
+    # B6 against its plain version on the real first stage (affine input)
+    # and the second (XYZZ input) of that commit
+    (tf, rounds, masks, pts, _), k0 = captured[0][0], captured[0][1]
+    first = (tf, rounds, masks, pts, k0.get("live"))
+    (tf, rounds, masks, pts, _), _k = captured[1][0], captured[1][1]
+    later = (tf, rounds, masks, pts, None)
+    stage_rows, err = {}, 0
+    for label, mode, (tf, rounds, masks, pts, live) in (
+        ("first", "fast0", first), ("first", "complete", first),
+        ("later", "fast", later), ("later", "complete", later),
+    ):
+        got, gflag = msm2.stage(tf, rounds, masks, pts, mode, live)
+        ref, rflag = msm2.stage_plain(tf, rounds, masks, pts, mode, live)
+        e = max_abs_err(torch, got, ref)
+        if bool(gflag.any()) != bool(rflag):
+            raise PhaseError(f"B6 {mode} on the {label} stage: flag {gflag} != {rflag}")
+        err = max(err, e)
+        b_ms, b_by = stage_bound(masks, mode, live is not None)
+        stage_rows[f"{label}/{mode}"] = {
+            "lanes": int(masks.shape[1]), "rounds": rounds, "max_abs_err": e,
+            "ms": cuda_ms(torch, lambda: msm2.stage(tf, rounds, masks, pts, mode, live), reps),
+            "plain_ms": cuda_ms(
+                torch, lambda: msm2.stage_plain(tf, rounds, masks, pts, mode, live), 1),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    log("B6: " + json.dumps(stage_rows))
+    if err:
+        raise PhaseError(f"B6 disagrees with its plain version: max |err| {err}")
+
+    # msm_device2 at the witness size and on the msm3m key and scalars
+    msm2_t = {}
+    for label, scal, dbs in (("witness", witness, db),
+                             ("msm3m", msm_scal, msm_ck.device_bases2(len(msm_scal)))):
+        msm2.msm_device2(scal, device_bases=dbs, reuse=True)
+        ts = []
+        for _ in range(3 if not args.rehearse else 1):
+            t0 = time.perf_counter()
+            msm2.msm_device2(scal, device_bases=dbs, reuse=True)
+            ts.append(time.perf_counter() - t0)
+        msm2_t[label] = {"n": len(scal), "ms": statistics.median(ts) * 1e3,
+                         "pts_per_s": len(scal) / statistics.median(ts)}
+    log("msm_device2: " + json.dumps(msm2_t))
+
+    # repeated bases: the fast pass flags P = +-Q and the complete rerun runs
+    rep = (pp.ck_primary.ck[:8] * 512)[:4096]
+    small = [int(x) for x in np.random.default_rng(SEED + 1).integers(0, 1 << 16, len(rep))]
+    db_rep = msm2.DeviceBases2(pallas, rep, device=dev)
+    before = _build.LAUNCHES["stage"]
+    got = msm2.msm_device2(small, device_bases=db_rep, reuse=True)
+    passes = _build.LAUNCHES["stage"] - before
+    c_rep = msm2._window_for(4096)
+    per_pass = len(msm2._plan(msm2._num_windows2(c_rep) * 4096, 1 << (c_rep - 1)))
+    if got != host_msm_parallel(pallas, small, rep, workers):
+        raise PhaseError("repeated-base msm_device2 != host msm")
+    log(f"repeated bases: equal to the host msm; B6 launches {passes} "
+        f"(expected {2 * per_pass}: fast pass + complete rerun)")
+    if not args.rehearse and passes != 2 * per_pass:
+        raise PhaseError("repeated bases did not take the complete rerun")
+    log(f"phase 6: {time.perf_counter() - t6:.1f} s")
+
+    main = stage_rows["first/fast0"]
+    return {
+        "row": {"launches": launches["stage"], "max_abs_err": err, "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"]},
+        "fold": fold, "stage_modes": stage_rows, "msm_device2": msm2_t,
+        "fold_launches": launches,
+    }
 
 
 def run(args) -> dict:
@@ -252,7 +494,7 @@ def run(args) -> dict:
         torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     log(f"main path: {time.perf_counter() - t0:.1f} s, launches {launches}")
-    missing = [k for k, x in launches.items() if x == 0]
+    missing = [k for k in COMMIT_KERNELS if launches[k] == 0]
     if missing and not args.rehearse:
         raise PhaseError(f"kernels not launched on the main path: {missing}")
 
@@ -439,16 +681,23 @@ def run(args) -> dict:
     }
     log("msm3m: " + json.dumps(msm))
     if args.profile:
-        profile_commits(torch, CommitmentEngine, ck, v, reps)
+        profile_window(torch, lambda: CommitmentEngine.commit(ck, v), reps, "commits")
+
+    fold = fold_step(args, torch, dev, workers, ck, scal)
+    log(f"== done: all phases passed")
 
     rows = []
     for name in REPLACES:
-        ms, plain_ms, (b_ms, b_by) = timed[name]
+        if name == "stage":
+            row = dict(fold["row"])
+        else:
+            ms, plain_ms, (b_ms, b_by) = timed[name]
+            row = {"launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "replaces": REPLACES[name], **row, "library_ms": None,
+            "fold_step_launches": fold["fold_launches"][name],
         })
     return {"smi": smi, "kernels": rows, "msm": msm}
 
@@ -456,11 +705,14 @@ def run(args) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-n", type=int, default=16, help="MSM size 2^n")
+    ap.add_argument("--fold-log-cons", type=int, default=17,
+                    help="primary constraints 2^k of the fold step (k >= 14)")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler window over sequential commits")
+                    help="add torch.profiler windows over sequential commits "
+                         "and over replayed prove_steps")
     ap.add_argument("--rehearse", action="store_true",
                     help="run on the CPU with the plain versions (no card, "
-                         "no result line); use with --log-n 10")
+                         "no result line); use with --log-n 10 --fold-log-cons 14")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:

@@ -6,13 +6,18 @@ for Hopper (``csrc/``, built by ``nvcc`` at first use, see ``_build.py``).
 It imports neither ``jax`` nor ``nova_tpu``: host-only modules it needs
 are its own copies.
 
-Ported so far (the device Pedersen commit):
+Ported so far (the device Pedersen commit and the IVC fold step):
 
 - ``fields``   -- field specs (host ints) and ``TField``, the 16-bit-limb
   Montgomery engine on ``(N, 16)`` int32 tensors; kernels K1-K3.
-- ``curves``   -- curve specs, the host Pippenger oracle, XYZZ points.
-- ``ops``      -- ``FVec`` and the fixed-base MSM (``msm3``; kernels K4, K5).
-- ``provider`` -- Keccak/Shake256, hash-to-curve and the Pedersen engine.
+- ``curves``   -- curve specs, the host Pippenger, XYZZ points.
+- ``ops``      -- ``FVec``, the fixed-base MSM (``msm3``; kernels K4, K5),
+  the int-scalar MSM (``msm2.msm_device2``; kernel B6), SpMV and folds.
+- ``provider`` -- Keccak (Shake256, the transcript), hash-to-curve,
+  Poseidon, the engines and the Pedersen engine.
+- ``r1cs``, ``frontend``, ``gadgets``, ``nova`` -- the R1CS layer, the
+  constraint-system frontend, the in-circuit gadgets, NIFS, the augmented
+  circuit and ``PublicParams``/``RecursiveSNARK``.
 - ``interop``  -- numpy arrays of the JAX package's state -> port objects.
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes

@@ -1,5 +1,6 @@
 // 256-bit Montgomery field arithmetic and XYZZ point formulas shared by
-// every kernel of the port (field_kernels.cu: K1-K3, msm_kernels.cu: K4-K5).
+// every kernel of the port (field_kernels.cu: K1-K3, msm_kernels.cu: K4-K5,
+// stage_kernel.cu: B6).
 //
 // Public layout (the JAX package's): an element is 16 int32 lanes, each a
 // 16-bit limb, little-endian, in Montgomery form with R = 2^256. Inside a
@@ -284,6 +285,38 @@ __device__ __forceinline__ Pt xyzz_add_fast(const Pt& P, const Pt& Q, bool& bad,
   const Fe r = fe_sub(s2, s1, fc);
   bad = fe_is_zero(pd);
   return xyzz_add_general(P, Q, u1, s1, pd, r, fc);
+}
+
+// _affine_add_limbs_fast: round 0 of a "fast0" stage, where both operands
+// are affine (ZZ = ZZZ = Montgomery one) or identities (ZZ = 0); 6 products.
+// The result's ZZ/ZZZ are PP/PPP, or the surviving operand's ZZ when one is
+// the identity. `bad` flags P = +-Q like xyzz_add_fast.
+__device__ __forceinline__ Pt xyzz_affine_add_fast(const Pt& P, const Pt& Q, bool& bad,
+                                                   const FieldConsts& fc) {
+  bad = false;
+  if (fe_is_zero(P.zz)) {
+    Pt R = Q;
+    R.zzz = Q.zz;
+    return R;
+  }
+  if (fe_is_zero(Q.zz)) {
+    Pt R = P;
+    R.zzz = P.zz;
+    return R;
+  }
+  const Fe pd = fe_sub(Q.x, P.x, fc);
+  const Fe r = fe_sub(Q.y, P.y, fc);
+  const Fe pp = fe_mul(pd, pd, fc);
+  const Fe rr = fe_mul(r, r, fc);
+  const Fe ppp = fe_mul(pd, pp, fc);
+  const Fe qq = fe_mul(P.x, pp, fc);
+  Pt R;
+  R.x = fe_sub(fe_sub(rr, ppp, fc), fe_dbl(qq, fc), fc);
+  R.y = fe_sub(fe_mul(r, fe_sub(qq, R.x, fc), fc), fe_mul(P.y, ppp, fc), fc);
+  R.zz = pp;
+  R.zzz = ppp;
+  bad = fe_is_zero(pd);
+  return R;
 }
 
 // msm3._madd_fast: XYZZ += affine (madd-2008-s, 10 muls), no doubling path.

@@ -16,7 +16,6 @@ Replaces: ``nova_tpu/fields/pallas_kernels.py::_mont_mul_2d`` (K1),
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from nova_tpu_torch import _build
 from nova_tpu_torch._device import on_cuda
@@ -71,11 +70,11 @@ class LimbOps:
 
     def mul(self, a, b):
         a, b = torch.broadcast_tensors(a, b)
-        batch = a.shape[:-1]
-        prod = a[..., :, None] * b[..., None, :]  # (..., 16, 16) < 2^32
-        # anti-diagonal sums: padding rows to 33 aligns 33i+j with 32i+(i+j)
-        f = F.pad(prod, (0, 17)).reshape(batch + (16 * 33,))[..., : 16 * 32]
-        cols = f.reshape(batch + (16, 32)).sum(dim=-2)  # (..., 32) < 2^37
+        # anti-diagonal sums of the 16 x 16 limb products: column i + j
+        # gathers a_i * b_j (each < 2^32), so every column stays < 2^37
+        cols = a.new_zeros(a.shape[:-1] + (2 * NUM_LIMBS,))
+        for i in range(NUM_LIMBS):
+            cols[..., i : i + NUM_LIMBS] += a[..., i : i + 1] * b
         carry = None
         for i in range(NUM_LIMBS):
             t = cols[..., i] if carry is None else cols[..., i] + carry
@@ -220,6 +219,34 @@ def xyzz_add_limbs_fast(o: LimbOps, P, Q):
     out = (pick(x3, X1, X2), pick(y3, Y1, Y2), pick(zz3, ZZ1, ZZ2),
            pick(zzz3, ZZZ1, ZZZ2))
     return out, eq_u & ~p_zero & ~q_zero
+
+
+def affine_add_limbs_fast(o: LimbOps, P, Q):
+    """Both operands affine (ZZ = ZZZ = the Montgomery one) or identities
+    (ZZ = 0), 6 products (msm2._affine_add_limbs_fast): returns (coords,
+    bad) where bad flags x1 == x2 lanes. The result's ZZ/ZZZ are PP/PPP,
+    or the surviving operand's ZZ when one is the identity."""
+    X1, Y1, ZZ1, _ = P
+    X2, Y2, ZZ2, _ = Q
+    pd = o.sub(X2, X1)
+    r = o.sub(Y2, Y1)
+    pp = o.mul(pd, pd)
+    rr = o.mul(r, r)
+    ppp = o.mul(pd, pp)
+    qq = o.mul(X1, pp)
+    x3 = o.sub(o.sub(rr, ppp), o.dbl(qq))
+    y3 = o.sub(o.mul(r, o.sub(qq, x3)), o.mul(Y1, ppp))
+
+    p_zero = o.is_zero(ZZ1)
+    q_zero = o.is_zero(ZZ2)
+
+    def pick(res, pc, qc):
+        out = o.sel(p_zero, qc, res)
+        return o.sel(q_zero & ~p_zero, pc, out)
+
+    out = (pick(x3, X1, X2), pick(y3, Y1, Y2), pick(pp, ZZ1, ZZ2),
+           pick(ppp, ZZ1, ZZ2))
+    return out, o.is_zero(pd) & ~p_zero & ~q_zero
 
 
 def xyzz_double_limbs(o: LimbOps, P):

@@ -53,3 +53,56 @@ def set_fixed(db, c: int, n_pad: int, fx, fy, finf) -> None:
         c, n_pad, limbs(fx, dev), limbs(fy, dev),
         torch.from_numpy(np.array(finf, dtype=bool)).to(dev),
     )
+
+
+def r1cs_shape(field, num_cons: int, num_vars: int, num_io: int, mats: dict):
+    """An R1CSShape from its dimensions and ``mats[name] = (data, indices,
+    indptr)`` for name in "A", "B", "C": data an (nnz, 16) uint32 array of
+    16-bit limbs of the standard-form entries, indices and indptr the CSR
+    integer arrays. Built through R1CSShape.new, which checks the indices."""
+    from nova_tpu_torch.r1cs import R1CSShape, SparseMatrix
+
+    tf = TField(field)
+    cols = num_vars + num_io + 1
+    built = []
+    for name in ("A", "B", "C"):
+        data, indices, indptr = mats[name]
+        d = np.asarray(data)
+        if d.dtype != np.uint32 or (d.ndim == 2 and d.shape[1] != 16) or (d >> 16).any():
+            raise ValueError(f"{name}: expected (nnz, 16) uint32 16-bit limbs")
+        vals = tf.unpack(d.reshape(-1, 16)) if d.size else []
+        built.append(SparseMatrix(
+            field, vals, [int(i) for i in indices], [int(i) for i in indptr], cols
+        ))
+    return R1CSShape.new(field, num_cons, num_vars, num_io, *built)
+
+
+def commitment_key(curve, rows, device=None):
+    """A Pedersen CommitmentKey from (N + 1, 65) uint8 generator rows
+    x[32] | y[32] | inf[1] (the key cache's row format), row 0 being the
+    blinding generator h; its device MSMs run on `device`."""
+    from nova_tpu_torch.provider.pedersen import CommitmentKey, gens_from_rows
+
+    r = np.asarray(rows)
+    if r.dtype != np.uint8 or r.ndim != 2 or r.shape[1] != 65 or r.shape[0] < 2:
+        raise ValueError(f"expected (N + 1, 65) uint8 rows, got {r.dtype} {r.shape}")
+    gens = gens_from_rows(curve, r)
+    return CommitmentKey(curve, gens[1:], gens[0], device=resolve(device))
+
+
+def public_params(engine1, engine2, F_arity: int, shape1: dict, rows1,
+                  shape2: dict, rows2, device=None):
+    """The port's PublicParams from the JAX package's, through its own
+    constructor: `shape1`/`shape2` are dicts of r1cs_shape's arguments
+    (num_cons, num_vars, num_io, A, B, C) and `rows1`/`rows2` the key rows
+    of commitment_key, primary first; both keys are put on `device`."""
+    from nova_tpu_torch.nova.ivc import PublicParams
+
+    def shape(d, engine):
+        return r1cs_shape(engine.scalar, d["num_cons"], d["num_vars"], d["num_io"], d)
+
+    return PublicParams(
+        engine1, engine2, F_arity,
+        shape(shape1, engine1), commitment_key(engine1.curve, rows1, device),
+        shape(shape2, engine2), commitment_key(engine2.curve, rows2, device),
+    )

@@ -1,12 +1,28 @@
-"""Keccak-f[1600] and SHAKE-256 (FIPS 202), pure Python.
+"""Keccak family (keccak-f[1600] permutation, Keccak-256, SHAKE-256) and the
+Nova Fiat-Shamir transcript (copy of ``nova_tpu/provider/keccak.py``, with
+the pure-Python permutation).
 
-Copy of the parts of ``nova_tpu/provider/keccak.py`` that Pedersen
-generator derivation needs (``from_label`` reads a SHAKE-256 XOF). The
-Keccak-256 Fiat-Shamir transcript is not ported yet.
+The transcript protocol is re-implemented from the reference semantics
+(src/provider/keccak.rs:11-200):
+
+- state: 64 bytes; initialized as
+  ``state = H_lo_hi(PERSONA_TAG || label)`` where
+  ``H_lo_hi(x) = keccak256(x || 0x00) || keccak256(x || 0x01)``.
+- ``absorb(label, bytes)`` appends ``label || bytes`` to a running buffer.
+- ``squeeze(label)``: input = buffer || "NoDS" || round_le8 || state || label,
+  output = H_lo_hi(input); state <- output, round += 1, buffer cleared;
+  the scalar challenge is ``Scalar::from_uniform(output)`` (64-byte LE mod p).
+- ``squeeze_bits(label, num_bits, start_with_one)``: truncate output to
+  num_bits (LE bit order), optionally force the top bit.
+
+Keccak-256 uses the original Keccak padding (0x01), NOT SHA3's 0x06; Python's
+hashlib lacks it, so the permutation is implemented here and verified against
+the reference's own embedded vector (src/provider/keccak.rs:280-288).
 """
 
 from __future__ import annotations
 
+from nova_tpu_torch.errors import NovaError
 
 # ---------------------------------------------------------------------------
 # keccak-f[1600]
@@ -71,6 +87,12 @@ class KeccakSponge:
         self.lanes = [[0] * 5 for _ in range(5)]
         self.buf = bytearray()
 
+    def copy(self) -> "KeccakSponge":
+        s = KeccakSponge(self.rate, self.pad_byte)
+        s.lanes = [row[:] for row in self.lanes]
+        s.buf = bytearray(self.buf)
+        return s
+
     def update(self, data: bytes) -> "KeccakSponge":
         self.buf.extend(data)
         while len(self.buf) >= self.rate:
@@ -84,6 +106,53 @@ class KeccakSponge:
             x, y = i % 5, i // 5
             self.lanes[x][y] ^= lane
         self.lanes = keccak_f1600(self.lanes)
+
+    def _squeeze(self, n: int) -> bytes:
+        # pad10*1 with domain byte
+        block = bytearray(self.buf)
+        block.append(self.pad_byte)
+        while len(block) < self.rate:
+            block.append(0)
+        block[-1] |= 0x80
+        lanes = [row[:] for row in self.lanes]
+        for i in range(self.rate // 8):
+            lane = int.from_bytes(block[8 * i : 8 * i + 8], "little")
+            x, y = i % 5, i // 5
+            lanes[x][y] ^= lane
+        lanes = keccak_f1600(lanes)
+        out = bytearray()
+        while len(out) < n:
+            for i in range(self.rate // 8):
+                x, y = i % 5, i // 5
+                out.extend(lanes[x][y].to_bytes(8, "little"))
+                if len(out) >= n:
+                    break
+            if len(out) < n:
+                lanes = keccak_f1600(lanes)
+        return bytes(out[:n])
+
+
+class Keccak256:
+    """Keccak-256 (original padding 0x01), incremental API like sha3 crate."""
+
+    def __init__(self):
+        self._sponge = KeccakSponge(rate_bytes=136, pad_byte=0x01)
+
+    def update(self, data: bytes) -> "Keccak256":
+        self._sponge.update(bytes(data))
+        return self
+
+    def copy(self) -> "Keccak256":
+        k = Keccak256.__new__(Keccak256)
+        k._sponge = self._sponge.copy()
+        return k
+
+    def finalize(self) -> bytes:
+        return self._sponge._squeeze(32)
+
+
+def keccak256(data: bytes) -> bytes:
+    return Keccak256().update(data).finalize()
 
 
 class Shake256:
@@ -139,3 +208,83 @@ class _XofReader:
 # ---------------------------------------------------------------------------
 # Nova transcript (reference: src/provider/keccak.rs)
 # ---------------------------------------------------------------------------
+
+PERSONA_TAG = b"NoTR"
+DOM_SEP_TAG = b"NoDS"
+KECCAK256_STATE_SIZE = 64
+_PREFIX_LO = bytes([0])
+_PREFIX_HI = bytes([1])
+
+
+def _compute_updated_state(hasher: Keccak256, extra: bytes, evm: bool = False) -> bytes:
+    """Dual-keccak squeeze (keccak.rs:68-96); the evm feature swaps the
+    lo/hi output halves (keccak.rs:84-95)."""
+    h = hasher.copy()
+    h.update(extra)
+    lo = h.copy().update(_PREFIX_LO).finalize()
+    hi = h.update(_PREFIX_HI).finalize()
+    return (hi + lo) if evm else (lo + hi)
+
+
+class Keccak256Transcript:
+    """Fiat-Shamir transcript; generic over the engine's scalar field.
+
+    ``scalar_field`` is the FieldSpec of the engine's Scalar field (challenge
+    target, `E::Scalar::from_uniform`).
+    """
+
+    def __init__(self, label: bytes, scalar_field, evm: bool = False):
+        self.scalar_field = scalar_field
+        self.evm = evm
+        self.round = 0
+        hasher = Keccak256()
+        self.state = _compute_updated_state(hasher, PERSONA_TAG + label, evm)
+        self.transcript = Keccak256()
+        self.transcript_buffer = bytearray()
+
+    def absorb_bytes(self, label: bytes, repr_bytes: bytes):
+        self.transcript.update(label)
+        self.transcript_buffer.extend(label)
+        self.transcript.update(repr_bytes)
+        self.transcript_buffer.extend(repr_bytes)
+
+    def absorb(self, label: bytes, obj):
+        """Absorb an object exposing to_transcript_bytes(), or raw bytes."""
+        if isinstance(obj, (bytes, bytearray)):
+            self.absorb_bytes(label, bytes(obj))
+        else:
+            self.absorb_bytes(label, obj.to_transcript_bytes())
+
+    def dom_sep(self, tag: bytes):
+        self.transcript.update(DOM_SEP_TAG)
+        self.transcript_buffer.extend(DOM_SEP_TAG)
+        self.transcript.update(tag)
+        self.transcript_buffer.extend(tag)
+
+    def _squeeze_raw(self, label: bytes) -> bytes:
+        order = "big" if self.evm else "little"
+        inp = DOM_SEP_TAG + self.round.to_bytes(8, order) + self.state + label
+        output = _compute_updated_state(self.transcript, inp, self.evm)
+        if self.round >= (1 << 64) - 1:
+            raise NovaError("transcript round overflow")
+        self.round += 1
+        self.state = output
+        self.transcript = Keccak256()
+        self.transcript_buffer = bytearray()
+        if self.evm:
+            output = output[::-1]
+        return output
+
+    def squeeze(self, label: bytes) -> int:
+        out = self._squeeze_raw(label)
+        return self.scalar_field.from_uniform(out)
+
+    def squeeze_bits(self, label: bytes, num_bits: int, start_with_one: bool) -> int:
+        assert num_bits >= 2
+        assert num_bits <= self.scalar_field.num_bits - 1
+        out = self._squeeze_raw(label)
+        v = int.from_bytes(out[:32], "little")
+        v &= (1 << num_bits) - 1
+        if start_with_one:
+            v |= 1 << (num_bits - 1)
+        return v

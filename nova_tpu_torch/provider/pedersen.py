@@ -7,10 +7,11 @@ generator, lifted to the curve with the halo2curves hash_to_curve map.
 Keys are cached on disk in the port's own cache directory, in the same
 ``.npy`` row format as the JAX package.
 
-Routing: an ``FVec`` always takes the device MSM (``msm_device3_mont``) on
-the device it lives on; a plain int list is committed by the host
-Pippenger (``commit``), or by the device MSM with a bit bound when it is
-long enough (``commit_small``).
+Routing: an ``FVec`` always takes the fixed-base device MSM
+(``msm_device3_mont``) on the device it lives on; a plain int list of at
+least DEVICE_THRESHOLD entries takes the int-scalar device MSM
+(``msm_device2``) on the key's device, a shorter one the host Pippenger;
+``commit_small`` sends long lists to the device MSM with a bit bound.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import List, Sequence
 import numpy as np
 
 from nova_tpu_torch import constants
+from nova_tpu_torch.constants import BN_LIMB_WIDTH, BN_N_LIMBS
 from nova_tpu_torch.curves.msm_host import msm as host_msm
 from nova_tpu_torch.curves.spec import ALL_CURVES, AffinePoint, CurveSpec
 from nova_tpu_torch.provider.keccak import Shake256
@@ -93,8 +95,15 @@ class CommitmentKey:
         return db
 
 
+@dataclass
+class DerandKey:
+    curve: CurveSpec
+    h: AffinePoint
+
+
 class Commitment:
-    """A Pedersen commitment: a group element."""
+    """A Pedersen commitment: a group element with the reference's
+    transcript/RO absorption conventions."""
 
     __slots__ = ("point",)
 
@@ -126,13 +135,37 @@ class Commitment:
     def to_transcript_bytes(self) -> bytes:
         return self.point.to_transcript_bytes()
 
+    def absorb_in_ro(self, ro):
+        """Absorb (x, y, infinity) in the base-field RO
+        (src/provider/pedersen.rs:120-135)."""
+        x, y, inf = self.point.to_coordinates()
+        ro.absorb(x)
+        ro.absorb(y)
+        ro.absorb(1 if inf else 0)
+
+    def absorb_in_ro2(self, ro):
+        """Absorb in the scalar-field RO as bignat limbs
+        (src/provider/pedersen.rs:137-157)."""
+        x, y, inf = self.point.to_coordinates()
+        mask = (1 << BN_LIMB_WIDTH) - 1
+        for v in (x, y):
+            for i in range(BN_N_LIMBS):
+                ro.absorb((v >> (BN_LIMB_WIDTH * i)) & mask)
+        ro.absorb(1 if inf else 0)
+
 
 def _load_gen_cache(path, curve, num):
     """Cached generators from the raw .npy rows x[32] | y[32] | inf[1]."""
     with open(path, "rb") as fh:
         rows = np.load(fh, allow_pickle=False)
+    return gens_from_rows(curve, rows[:num])
+
+
+def gens_from_rows(curve, rows) -> List[AffinePoint]:
+    """Points from (N, 65) uint8 rows x[32] | y[32] | inf[1], little-endian
+    (the key cache's row format)."""
     out = []
-    for r in rows[:num]:
+    for r in rows:
         if r[64]:
             out.append(AffinePoint.identity(curve))
         else:
@@ -195,6 +228,14 @@ class CommitmentEngine:
         return CommitmentKey(curve, gens[1:], gens[0], device=device)
 
     @staticmethod
+    def derand_key(ck: CommitmentKey) -> DerandKey:
+        return DerandKey(ck.curve, ck.h)
+
+    @staticmethod
+    def derandomize(dk: DerandKey, commit: Commitment, r: int) -> Commitment:
+        return Commitment(commit.point.sub(dk.h.mul(r)))
+
+    @staticmethod
     def commit(ck: CommitmentKey, v: Sequence[int], r: int = 0) -> Commitment:
         from nova_tpu_torch.ops.fvec import FVec
 
@@ -209,6 +250,11 @@ class CommitmentEngine:
         v = list(v)
         if not v:
             return _with_blind(ck, AffinePoint.identity(ck.curve), r)
+        if len(v) >= constants.DEVICE_THRESHOLD:
+            from nova_tpu_torch.ops.msm2 import msm_device2
+
+            acc = msm_device2(v, device_bases=ck.device_bases2(len(v)), reuse=True)
+            return _with_blind(ck, acc, r)
         return _with_blind(ck, host_msm(v, ck.ck[: len(v)]), r)
 
     @staticmethod

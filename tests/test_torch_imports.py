@@ -32,6 +32,14 @@ def test_import_leaves_jax_and_nova_tpu_out():
         "import nova_tpu_torch, nova_tpu_torch.interop\n"
         "import nova_tpu_torch.ops.msm3, nova_tpu_torch.provider.pedersen\n"
         "import nova_tpu_torch.fields.tfield, nova_tpu_torch.curves.points\n"
+        "import nova_tpu_torch.ops.msm2, nova_tpu_torch.ops.spmv, nova_tpu_torch.ops.fold\n"
+        "import nova_tpu_torch.r1cs, nova_tpu_torch.digest, nova_tpu_torch.profiling\n"
+        "import nova_tpu_torch.provider.poseidon, nova_tpu_torch.provider.keccak\n"
+        "import nova_tpu_torch.provider.engines, nova_tpu_torch.frontend\n"
+        "import nova_tpu_torch.frontend.tape, nova_tpu_torch.gadgets.utils\n"
+        "import nova_tpu_torch.gadgets.ecc, nova_tpu_torch.gadgets.bignat\n"
+        "import nova_tpu_torch.gadgets.poseidon_circuit, nova_tpu_torch.nova\n"
+        "import nova_tpu_torch.nova.circuit, nova_tpu_torch.nova.ivc\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nova_tpu' or m.startswith('nova_tpu.')]\n"
         "assert not bad, bad\n"
