@@ -2,11 +2,10 @@
 """Drive the PyTorch/CUDA port on one GPU: the device Pedersen commit, then
 the IVC fold step (RecursiveSNARK.prove_step) at a 2^17-constraint primary.
 
-    python3 chip_smoke.py                # full run: 2^16 commit, 2^17 fold step
-    python3 chip_smoke.py --log-n 12 --fold-log-cons 15   # a shorter run
+    python3 chip_smoke.py                # 2^16 commit, 2^17 fold step
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
-    python3 chip_smoke.py --rehearse --log-n 10 --fold-log-cons 14
-                                         # CPU dry run, plain versions
+    python3 chip_smoke.py --rehearse     # CPU dry run at 2^10 / 2^14,
+                                         # plain versions, no result
 
 Phases (each fatal; on failure the script exits non-zero and prints no
 result line):
@@ -35,11 +34,16 @@ result line):
    the counts are reset just before new and read just after verify, every
    kernel of the path must have launched and B6 on every step that folds;
 6. fold-step checks: one fresh primary witness committed by msm_device2,
-   msm_device3 and the host Pippenger (equal), B6 in all three modes against
+   msm_device3 and the host Pippenger (equal); B6 in all three modes against
    its plain version on the stage inputs of that commit (bitwise, equal
-   flags) and timed, msm_device2 timed at the witness size and on the
-   msm3m key and scalars, and a repeated-base msm_device2 that must take the
-   complete rerun.
+   flags) and timed; K1-K5 against their plain versions on the inputs the
+   fold step gives them (bitwise): K1/K3 in the witness key's window
+   precompute, K2/K5 in the bucket reduction of msm_device2, K4 in the
+   commit of the running witness, K1 in the cross-term's SpMV; the
+   device cross-term commit_T_device (plain and relaxed) on the padded
+   square primary shape against T computed on the host; msm_device2 timed
+   at the witness size and on the msm3m key and scalars; and a
+   repeated-base msm_device2 that must take the complete rerun.
 
 The last lines are the card's name and power limit, one JSON object
 {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -48,6 +52,7 @@ The last lines are the card's name and power limit, one JSON object
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -64,6 +69,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_S = 3.35e12
 ROW = 64  # bytes of one (16,) int32 limb row
 SEED = 20260
+# sizes of a card run (--rehearse runs 2^10 / 2^14 on the CPU): the msm3m
+# commit, and the fold step's primary, the smallest reference bench size
+# at which its device routes engage
+LOG_N, REHEARSE_LOG_N = 16, 10
+FOLD_LOG_CONS, REHEARSE_FOLD_LOG_CONS = 17, 14
 
 REPLACES = {
     "mont_mul": "nova_tpu/fields/pallas_kernels.py:85",
@@ -178,6 +188,90 @@ def host_msm_parallel(curve, scalars, bases, workers: int):
     return acc
 
 
+def _numel(x) -> int:
+    if isinstance(x, dict):
+        return sum(_numel(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return sum(_numel(v) for v in x)
+    return x.numel() if hasattr(x, "numel") else 0
+
+
+def _copy(x):
+    if isinstance(x, dict):
+        return {k: _copy(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_copy(v) for v in x)
+    return x.clone() if hasattr(x, "clone") else x
+
+
+@contextlib.contextmanager
+def largest_calls(targets: dict):
+    """While installed, keep a copy of the arguments of the largest call
+    (by tensor elements; the latest among equals) of each function in
+    `targets` ({name: (module, attribute)}); yields {name: args}."""
+    seen, sizes, saved = {}, {}, []
+    for name, (mod, attr) in targets.items():
+        real = getattr(mod, attr)
+        saved.append((mod, attr, real))
+
+        def wrapper(*a, _name=name, _real=real):
+            size = _numel(a)
+            if size >= sizes.get(_name, -1):
+                sizes[_name], seen[_name] = size, _copy(a)
+            return _real(*a)
+
+        setattr(mod, attr, wrapper)
+    try:
+        yield seen
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+
+
+def kernel_vs_plain(torch, name: str, args) -> int:
+    """Kernel `name` and its plain PyTorch version on captured arguments:
+    the largest difference over limbs (and flags)."""
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.ops import msm2, msm3
+
+    tf = args[0]
+    o = tf.ops(first_input(args).device)
+
+    def limbs(P):
+        return tuple(P[k].long() for k in fk.KEYS)
+
+    if name == "mont_mul":
+        _, a, b = args
+        got = fk.mont_mul(tf, a, b)
+        ref = o.mul(a.long(), b.long()).expand(got.shape)
+        return int((got.long() - ref).abs().max().item())
+    if name == "xyzz_add":
+        _, P, Q = args
+        ref = fk.xyzz_add_limbs(o, limbs(P), limbs(Q))
+        return max_abs_err(torch, fk.xyzz_add(tf, P, Q), dict(zip(fk.KEYS, ref)))
+    if name == "xyzz_double":
+        _, P = args
+        ref = fk.xyzz_double_limbs(o, limbs(P))
+        return max_abs_err(torch, fk.xyzz_double(tf, P), dict(zip(fk.KEYS, ref)))
+    if name == "bucket_reduce":
+        _, table, m = args
+        (gS, gW), (rS, rW) = (msm2.bucket_reduce_groups(tf, table, m),
+                              msm2.bucket_reduce_groups_plain(tf, table, m))
+        return max(max_abs_err(torch, gS, rS), max_abs_err(torch, gW, rW))
+    if name == "accum":
+        _, d_grid, pts, mode = args
+        got, ref = msm3.accum(tf, d_grid, pts, mode), msm3.accum_plain(tf, d_grid, pts, mode)
+        return max(max_abs_err(torch, got[0], ref[0]), max_abs_err(torch, got[1], ref[1]),
+                   int((got[2] - ref[2]).abs().max().item()))
+    raise ValueError(name)
+
+
+def first_input(args):
+    """The first tensor argument of a kernel wrapper (after its TField): a
+    limb tensor, a digit grid, or the x coordinates of a point dict."""
+    return args[1]["x"] if isinstance(args[1], dict) else args[1]
+
+
 def profile_window(torch, fn, reps: int, what: str) -> None:
     """torch.profiler over `reps` calls of fn (after one warm-up call):
     device-busy share of the wall time and the kernels that take the
@@ -260,14 +354,20 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
 
     from nova_tpu_torch import _build, profiling
     from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.fields.tfield import TField
     from nova_tpu_torch.nova.ivc import PublicParams, RecursiveSNARK
-    from nova_tpu_torch.ops import msm2, msm3
+    from nova_tpu_torch.ops import fold as fold_ops
+    from nova_tpu_torch.ops import msm2, msm3, spmv
+    from nova_tpu_torch.ops.fvec import FVec, as_list
     from nova_tpu_torch.provider.engines import PallasEngine, VestaEngine
+    from nova_tpu_torch.provider.pedersen import CommitmentEngine
 
     reps = 1 if args.rehearse else 5
-    log(f"== phase 5: fold step (squaring chain, primary 2^{args.fold_log_cons} "
+    log_cons = REHEARSE_FOLD_LOG_CONS if args.rehearse else FOLD_LOG_CONS
+    log(f"== phase 5: fold step (squaring chain, primary 2^{log_cons} "
         f"constraints, {FOLD_STEPS} prove_steps)")
-    squares = (1 << args.fold_log_cons) - AUGMENTED_PRIMARY_CONS
+    squares = (1 << log_cons) - AUGMENTED_PRIMARY_CONS
     circuit = square_chain(squares)
     t0 = time.perf_counter()
     pp = PublicParams.setup(PallasEngine, VestaEngine, circuit, device=dev)
@@ -275,7 +375,7 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     log(f"setup: constraints {pp.num_constraints()}, variables {pp.num_variables()}, "
         f"keys {len(pp.ck_primary)}/{len(pp.ck_secondary)} on {pp.ck_primary.device}, "
         f"{setup_s:.1f} s")
-    if pp.num_constraints()[0] != 1 << args.fold_log_cons:
+    if pp.num_constraints()[0] != 1 << log_cons:
         raise PhaseError(f"primary has {pp.num_constraints()[0]} constraints")
 
     z0 = [2]
@@ -385,6 +485,57 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     if err:
         raise PhaseError(f"B6 disagrees with its plain version: max |err| {err}")
 
+    # K1-K5 against their plain versions on the inputs the fold step gives
+    # them: an msm_device2 on a fresh copy of the witness key recomputes the
+    # window precompute (K3 doublings, K1 in the batched inversion) and
+    # reduces its buckets (K5, then K3 and K2); a commit of the running
+    # witness (verify's route) runs K4; the cross-term's SpMV runs K1
+    fresh = msm2.DeviceBases2.from_tensors(pallas, db.x, db.y, db.inf)
+    with largest_calls({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
+                        "xyzz_double": (fk, "xyzz_double"),
+                        "bucket_reduce": (msm2, "bucket_reduce_groups")}) as seen:
+        again = msm2.msm_device2(witness, device_bases=fresh, reuse=True)
+    if again != got2:
+        raise PhaseError(f"msm_device2 with the precompute rebuilt: {again} != {got2}")
+    sf = TField(pallas.scalar)
+    with largest_calls({"accum": (msm3, "accum")}) as seen4:
+        CommitmentEngine.commit(pp.ck_primary, FVec.coerce(sf, rs.r_W_primary.W, dev))
+    seen.update(seen4)
+
+    # the device cross-term on the padded (square) primary shape, plain and
+    # relaxed (the running instance folded with itself), against T formed
+    # on the host with pure-Python SpMV
+    S = pp.r1cs_shape_primary.pad()
+    U, Wr = rs.r_U_primary, rs.r_W_primary.pad(S)
+    with largest_calls({"spmv": (spmv, "spmv_m")}) as seen_spmv:
+        t_dev = {rel: fold_ops.commit_T_device(S, U, Wr, U, Wr, rel, dev).to_ints()
+                 for rel in (False, True)}
+    q = S.field.p
+    ww, ew = as_list(Wr.W), as_list(Wr.E)
+    for rel in (False, True):
+        u = (U.u + (U.u if rel else 1)) % q
+        z = [2 * w % q for w in ww] + [u] + [2 * x % q for x in U.X]
+        az, bz, cz = (M.multiply_vec(z) for M in (S.A, S.B, S.C))
+        e = 2 if rel else 1
+        if t_dev[rel] != [(a * b - u * c - e * x) % q for a, b, c, x in zip(az, bz, cz, ew)]:
+            raise PhaseError(f"commit_T_device (relaxed={rel}) != host T")
+    t_ms = cuda_ms(torch, lambda: fold_ops.commit_T_device(S, U, Wr, U, Wr, True, dev), reps)
+    log(f"commit_T_device on the {S.num_cons} x {S.num_vars} padded primary: plain and "
+        f"relaxed == host T; relaxed {t_ms:.3f} ms")
+    tf_s, csr, zm = seen_spmv["spmv"]
+    seen["mont_mul/spmv"] = (tf_s, zm[csr.indices], csr.data)
+
+    kernel_errs, checked = {}, {}
+    for label, a in seen.items():
+        name = label.split("/")[0]
+        e = kernel_vs_plain(torch, name, a)
+        kernel_errs[name] = max(kernel_errs.get(name, 0), e)
+        checked[label] = {"rows": list(first_input(a).shape), "max_abs_err": e}
+    log("fold-step kernels against their plain versions: " + json.dumps(checked))
+    bad = {k: e for k, e in kernel_errs.items() if e}
+    if bad:
+        raise PhaseError(f"fold-step kernels disagree with their plain versions: {bad}")
+
     # msm_device2 at the witness size and on the msm3m key and scalars
     msm2_t = {}
     for label, scal, dbs in (("witness", witness, db),
@@ -422,7 +573,7 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"]},
         "fold": fold, "stage_modes": stage_rows, "msm_device2": msm2_t,
-        "fold_launches": launches,
+        "fold_launches": launches, "kernel_errs": kernel_errs, "commit_T_ms": t_ms,
     }
 
 
@@ -446,7 +597,8 @@ def run(args) -> dict:
 
     dev = torch.device("cpu" if args.rehearse else "cuda")
     workers = max(1, min(8, os.cpu_count() or 1))
-    n = 1 << args.log_n
+    log_n = REHEARSE_LOG_N if args.rehearse else LOG_N
+    n = 1 << log_n
     # on CPU tensors the MSM caps the window at 9 (msm3._effective_window)
     c = 9 if args.rehearse else 16
     reps = 1 if args.rehearse else 5
@@ -466,7 +618,7 @@ def run(args) -> dict:
     log(f"card: {smi}")
 
     # -- phase 2: the main path -------------------------------------------
-    log(f"== phase 2: main path (pallas, n = 2^{args.log_n}, window {c})")
+    log(f"== phase 2: main path (pallas, n = 2^{log_n}, window {c})")
     t0 = time.perf_counter()
     ck = CommitmentEngine.setup(pallas, b"bench-msm", n - 1, device=dev,
                                 workers=workers)
@@ -692,7 +844,8 @@ def run(args) -> dict:
             row = dict(fold["row"])
         else:
             ms, plain_ms, (b_ms, b_by) = timed[name]
-            row = {"launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            err = max(errs[name], fold["kernel_errs"][name])
+            row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -704,15 +857,12 @@ def run(args) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--log-n", type=int, default=16, help="MSM size 2^n")
-    ap.add_argument("--fold-log-cons", type=int, default=17,
-                    help="primary constraints 2^k of the fold step (k >= 14)")
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler windows over sequential commits "
                          "and over replayed prove_steps")
     ap.add_argument("--rehearse", action="store_true",
-                    help="run on the CPU with the plain versions (no card, "
-                         "no result line); use with --log-n 10 --fold-log-cons 14")
+                    help="run on the CPU with the plain versions at 2^10 / "
+                         "2^14 (no card, no result line)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:

@@ -89,3 +89,21 @@ def test_host_msm_matches(name):
     jb = [jcurves.AffinePoint.generator(jc).mul(k) for k in ks]
     assert _xy(tmsm(scal, tb)) == _xy(jmsm(scal, jb))
     assert _xy(tmsm(scal[:5], tb[:5])) == _xy(jmsm(scal[:5], jb[:5]))
+
+
+@pytest.mark.parametrize("window", [2, 3, 5])
+def test_host_msm_degenerate_buckets(window):
+    """The Jacobian buckets meet P + P, P + (-P), an identity base and a zero
+    scalar in one window; the sum equals the JAX package's host MSM and
+    the naive sum of products."""
+    from nova_tpu_torch.curves.msm_host import msm_naive
+
+    tc, jc = tcurves.ALL_CURVES["pallas"], jcurves.ALL_CURVES["pallas"]
+    order = tc.scalar.p
+    ks = [5, 5, order - 5, 9, order - 9, 9, 13, 17, 17, 21, 1, 2]
+    scal = [6, 6, 6, 7, 7, 7, 0, 2**200 + 3, 2**200 + 3, 1, 3, 3]
+    tb = [tcurves.AffinePoint.generator(tc).mul(k) for k in ks]
+    jb = [jcurves.AffinePoint.generator(jc).mul(k) for k in ks]
+    tb[9], jb[9] = tcurves.AffinePoint.identity(tc), jcurves.AffinePoint.identity(jc)
+    got = _xy(tmsm(scal, tb, window))
+    assert got == _xy(jmsm(scal, jb)) == _xy(msm_naive(scal, tb))
