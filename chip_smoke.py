@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU: the device Pedersen commit, then
-the IVC fold step (RecursiveSNARK.prove_step) at a 2^17-constraint primary.
+"""Drive the PyTorch/CUDA port on one GPU: the device Pedersen commit, the
+IVC fold step (RecursiveSNARK.prove_step) at a 2^17-constraint primary, its
+compression (CompressedSNARK) and the field microbenchmark.
 
     python3 chip_smoke.py                # 2^16 commit, 2^17 fold step
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
-    python3 chip_smoke.py --rehearse     # CPU dry run at 2^10 / 2^14,
+    python3 chip_smoke.py --rehearse     # CPU dry run at 2^10 / 2^14 (and
+                                         # a 2^10-column microbenchmark),
                                          # plain versions, no result
 
 Phases (each fatal; on failure the script exits non-zero and prints no
 result line):
 
 1. build: require CUDA, build the kernels from nova_tpu_torch/csrc with
-   nvcc, print the build time, registers/spills and the card's name and
-   power limit;
+   nvcc and, meanwhile, the native host binding from native/nova_native.cpp
+   with g++ (required), print the build time, registers/spills and the
+   card's name and power limit;
 2. main path: CommitmentEngine.setup(pallas, b"bench-msm", 2^n - 1), a
    commit of a seeded full-width FVec, a batch_commit of 4 vectors and a
    commit_small of 16-bit scalars, with every kernel's launch count reset
@@ -43,7 +46,20 @@ result line):
    device cross-term commit_T_device (plain and relaxed) on the padded
    square primary shape against T computed on the host; msm_device2 timed
    at the witness size and on the msm3m key and scalars; and a
-   repeated-base msm_device2 that must take the complete rerun.
+   repeated-base msm_device2 that must take the complete rerun;
+7. compression: CompressedSNARK.setup -> prove (split by the profiling
+   phases) -> verify on phase 5's RecursiveSNARK, the counts reset just
+   before setup and read just after verify (K1-K3, K5 and B6 must have
+   launched, and the primary's outer sumcheck must have taken the device
+   route); a proof with zn or the primary's eval_W changed must fail; the
+   outer sumcheck again on the same tables through the host native loop
+   must give the same proof byte for byte; K1 in the device sumcheck's
+   first round against its plain version (bitwise); the randomizer's W
+   commit (msm_device2) against the native host MSM;
+8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
+   ITERS = 20) with the counts reset just before and read just after; P1
+   and P2 against their plain versions (bitwise) and timed beside their
+   bounds.
 
 The last lines are the card's name and power limit, one JSON object
 {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -59,6 +75,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Montgomery product on 8 x 32-bit words: 64 + 64 word products (a*b, m*p),
 # each two int32 multiply-adds (low and high halves), plus 8 for m = t*n0.
@@ -82,6 +99,8 @@ REPLACES = {
     "accum": "nova_tpu/ops/msm3.py:221",
     "bucket_reduce": "nova_tpu/ops/msm2.py:666",
     "stage": "nova_tpu/ops/msm2.py:432",
+    "mont16_chain": "perf/ubench_field.py:141",
+    "mont8_chain": "perf/ubench_field.py:208",
 }
 SOURCE = {
     "mont_mul": "nova_tpu_torch/csrc/field_kernels.cu",
@@ -90,11 +109,23 @@ SOURCE = {
     "accum": "nova_tpu_torch/csrc/msm_kernels.cu",
     "bucket_reduce": "nova_tpu_torch/csrc/msm_kernels.cu",
     "stage": "nova_tpu_torch/csrc/stage_kernel.cu",
+    "mont16_chain": "nova_tpu_torch/csrc/ubench_kernels.cu",
+    "mont8_chain": "nova_tpu_torch/csrc/ubench_kernels.cu",
 }
 # kernels the commit's main path must launch (phase 2), and the fold
 # step's (phase 5)
 COMMIT_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "accum", "bucket_reduce")
 FOLD_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "accum", "bucket_reduce", "stage")
+# and compression's (phase 7: msm_device2 and the device outer sumcheck),
+# and the field microbenchmark's (phase 8)
+COMPRESS_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "bucket_reduce", "stage")
+UBENCH_KERNELS = ("mont16_chain", "mont8_chain")
+# phase 8 sizes: perf/ubench_field.py's defaults (N = 2^18, ITERS = 20)
+UB_LOG_N, UB_ITERS, REHEARSE_UB_LOG_N, REHEARSE_UB_ITERS = 18, 20, 10, 2
+# 32-bit multiplies (each feeding an add) per column per chained product:
+# 16 x 16 limb products + 16 (m) + 16 + 16 x 15 (m * p) in radix 2^16,
+# 32 x 32 + 32 + 32 + 32 x 31 in radix 2^8 (the TPU bodies)
+UB_MULS = {"mont16_chain": 528, "mont8_chain": 2080}
 # constraints of the primary augmented circuit around a trivial step
 # circuit (tests/test_ivc.py); the squaring chain adds one per square
 AUGMENTED_PRIMARY_CONS = 9818
@@ -574,7 +605,216 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
                 "bound_by": main["bound_by"]},
         "fold": fold, "stage_modes": stage_rows, "msm_device2": msm2_t,
         "fold_launches": launches, "kernel_errs": kernel_errs, "commit_T_ms": t_ms,
+        "pp": pp, "rs": rs,
     }
+
+
+def compress(args, torch, dev, pp, rs) -> dict:
+    """Phase 7: CompressedSNARK setup -> prove -> verify on the fold step's
+    RecursiveSNARK (counts reset just before setup, read just after
+    verify), then its checks: a tampered proof fails, the outer sumcheck
+    again on the same tables through the other route (the host native loop
+    on the card), K1 in the device outer sumcheck's first round against its
+    plain version, and the randomizer's W commit against the native host
+    MSM."""
+    import copy
+
+    from nova_tpu_torch import _build, native, profiling
+    from nova_tpu_torch.errors import NovaError
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.ops import sumcheck as dsc
+    from nova_tpu_torch.spartan.polys import MultilinearPolynomial as ML
+    from nova_tpu_torch.spartan.sumcheck import SumcheckProof
+
+    S = pp.r1cs_shape_primary
+    log(f"== phase 7: compression (CompressedSNARK on the {S.num_cons}-constraint "
+        f"primary after {rs.i} steps)")
+    if not native.available():
+        raise PhaseError("the native host binding did not build (native/nova_native.cpp)")
+
+    # recorded while installed: the largest outer sumcheck (the primary's),
+    # whichever route proves it, with a copy of its transcript and its
+    # result; K1's arguments in the first device round; the primary's
+    # random pair
+    outer, k1, pair = {}, {}, {}
+    real_dev = dsc.prove_cubic_with_three_inputs_device
+    real_host = SumcheckProof.prove_cubic_with_three_inputs
+    real_round = dsc.DeviceSumcheck.cubic_eq_round
+    real_sample = S.sample_random_instance_witness
+
+    def keep(route, field, claim, taus, tables, transcript, run):
+        tcopy = copy.deepcopy(transcript, {id(transcript.scalar_field): transcript.scalar_field})
+        t0 = time.perf_counter()
+        res = run()
+        sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+        if len(taus) >= outer.get("rounds", -1):
+            outer.update(route=route, rounds=len(taus), field=field, claim=claim,
+                         taus=list(taus), tables=tables, transcript=tcopy, result=res,
+                         ms=ms)
+        return res
+
+    def on_device(field, claim, taus, Az, Bz, Cz, transcript, device=None):
+        return keep("device", field, claim, taus, (Az, Bz, Cz), transcript,
+                    lambda: real_dev(field, claim, taus, Az, Bz, Cz, transcript, device=device))
+
+    def on_host(field, claim, taus, A, B, C, transcript):
+        tables = tuple(list(pl.Z) for pl in (A, B, C))
+        return keep("host", field, claim, taus, tables, transcript,
+                    lambda: real_host(field, claim, taus, A, B, C, transcript))
+
+    def first_round(self, *polys):
+        if k1:
+            return real_round(self, *polys)
+        with largest_calls({"mont_mul": (fk, "mont_mul")}) as seen:
+            out = real_round(self, *polys)
+        k1.update(seen)
+        return out
+
+    def sample(ck):
+        pair["U"], pair["W"] = real_sample(ck)
+        return pair["U"], pair["W"]
+
+    z0 = [2]
+    os.environ["NOVA_PROFILE"] = "1"
+    dsc.prove_cubic_with_three_inputs_device = on_device
+    SumcheckProof.prove_cubic_with_three_inputs = staticmethod(on_host)
+    dsc.DeviceSumcheck.cubic_eq_round = first_round
+    S.sample_random_instance_witness = sample
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        pk, vk = CompressedSNARK.setup(pp)
+        setup_s = time.perf_counter() - t0
+        profiling.global_reset()
+        t0 = time.perf_counter()
+        snark = CompressedSNARK.prove(pp, pk, rs)
+        sync(torch)
+        prove_s = time.perf_counter() - t0
+        phases = {k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()}
+        t0 = time.perf_counter()
+        out = snark.verify(vk, rs.i, z0)
+        sync(torch)
+        verify_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        del os.environ["NOVA_PROFILE"]
+        log(f"setup {setup_s:.2f} s; prove {prove_s:.2f} s; verify {verify_s:.2f} s; "
+            f"launches {launches}")
+        log("prove phases (ms, both curves): " + json.dumps(phases))
+        if out != list(rs.zi):
+            raise PhaseError(f"verify returned {out}, expected {rs.zi}")
+        if not args.rehearse:
+            missing = [k for k in COMPRESS_KERNELS if launches[k] == 0]
+            if missing:
+                raise PhaseError(f"kernels not launched on compression: {missing}")
+            if outer["route"] != "device":
+                raise PhaseError("the primary's outer sumcheck did not take the device route")
+
+        # a tampered proof fails
+        p = S.field.p
+        zn, ew = list(snark.zn), snark.snark_primary.eval_W
+        for what in ("zn", "eval_W"):
+            if what == "zn":
+                snark.zn = [(z + 1) % p for z in zn]
+            else:
+                snark.snark_primary.eval_W = (ew + 1) % p
+            try:
+                snark.verify(vk, rs.i, z0)
+            except NovaError:
+                pass
+            else:
+                raise PhaseError(f"a proof with {what} changed verified")
+            finally:
+                snark.zn, snark.snark_primary.eval_W = zn, ew
+        log("tampered proofs (zn, the primary's eval_W) fail to verify")
+
+        # the outer sumcheck again on the same tables through the other
+        # route (on the card: the host native loop; in a rehearsal, which
+        # proves on the host, the device route)
+        o = outer
+        field, tables = o["field"], o["tables"]
+        t0 = time.perf_counter()
+        if o["route"] == "device":
+            other = real_host(field, o["claim"], o["taus"], *(ML(field, t) for t in tables),
+                              o["transcript"])
+        else:
+            other = real_dev(field, o["claim"], o["taus"], *tables, o["transcript"], device=dev)
+        sync(torch)
+        other_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dsc.prove_cubic_with_three_inputs_device = real_dev
+        SumcheckProof.prove_cubic_with_three_inputs = staticmethod(real_host)
+        dsc.DeviceSumcheck.cubic_eq_round = real_round
+        del S.sample_random_instance_witness
+        os.environ.pop("NOVA_PROFILE", None)
+
+    def proof(res):
+        return [cp.coeffs_except_linear_term for cp in res[0].compressed_polys], res[1], res[2]
+
+    if proof(o["result"]) != proof(other):
+        raise PhaseError(f"outer sumcheck: the {o['route']} proof differs from the other route's")
+    log(f"outer sumcheck ({o['rounds']} rounds): {o['route']} on the main path "
+        f"{o['ms']:.1f} ms; the other route gives the same proof byte for byte "
+        f"({other_ms:.1f} ms)")
+    k1_err = kernel_vs_plain(torch, "mont_mul", k1["mont_mul"])
+    k1_rows = list(first_input(k1["mont_mul"]).shape)
+    log(f"K1 in the first device round ({k1_rows}): max |kernel - plain| {k1_err}")
+    if k1_err:
+        raise PhaseError(f"K1 disagrees with its plain version in the outer sumcheck: {k1_err}")
+
+    # the random instance's W commit against the native host MSM
+    U, W = pair["U"], pair["W"]
+    ck = pp.ck_primary
+    host = native.msm_cached(ck.curve, ck.host_arrays(len(W.W)), list(W.W)).add(ck.h.mul(W.r_W))
+    if U.comm_W.point != host:
+        raise PhaseError("the randomizer's W commit != the native host MSM")
+    log(f"randomizer W commit ({len(W.W)} scalars) == native host MSM")
+    return {"setup_s": setup_s, "prove_ms": prove_s * 1e3, "phase_ms": phases,
+            "verify_ms": verify_s * 1e3, "launches": launches, "k1_err": k1_err,
+            "k1_rows": k1_rows, "outer_route": o["route"], "outer_rounds": o["rounds"],
+            "outer_ms": o["ms"], "other_route_ms": other_ms}
+
+
+def field_ubench(args, torch, dev) -> dict:
+    """Phase 8: perf/ubench_field.py's benchmark on the card (its lines, the
+    counts reset just before and read just after), then P1 and P2 against
+    their plain versions and timed beside their bounds."""
+    from nova_tpu_torch import _build
+    from nova_tpu_torch.perf import ubench_field as ub
+
+    log_n, iters = ((REHEARSE_UB_LOG_N, REHEARSE_UB_ITERS) if args.rehearse
+                    else (UB_LOG_N, UB_ITERS))
+    n = 1 << log_n
+    reps = 1 if args.rehearse else 5
+    log(f"== phase 8: field microbenchmark (P1, P2; N = 2^{log_n}, ITERS = {iters})")
+    _build.reset_launches()
+    probe_s = ub.main([str(log_n), str(iters)], device=dev)
+    sync(torch)
+    launches = {k: _build.LAUNCHES[k] for k in UBENCH_KERNELS}
+    if not args.rehearse and not all(launches.values()):
+        raise PhaseError(f"kernels not launched by the microbenchmark: {launches}")
+    t = ub.inputs(n, device=dev)
+    rows = {}
+    for name, bits, a, b in (("mont16_chain", 16, t["a16"], t["b16"]),
+                             ("mont8_chain", 8, t["a8"], t["b8"])):
+        fn = getattr(ub, name)
+        got = fn(a, b, iters)
+        ref = ub.mont_chain_plain(a, b, iters, bits)
+        err = int((got.long() - ref.long()).abs().max().item())
+        ms = cuda_ms(torch, lambda: fn(a, b, iters), reps)
+        b_ms, b_by = bound(3 * a.numel() * 4, UB_MULS[name] * n * iters)
+        rows[name] = {
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": cuda_ms(torch, lambda: ub.mont_chain_plain(a, b, iters, bits), 1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "melem_per_s": n * iters / (ms / 1e3) / 1e6,
+        }
+    log("P1/P2: " + json.dumps(rows))
+    bad = {k: r["max_abs_err"] for k, r in rows.items() if r["max_abs_err"]}
+    if bad:
+        raise PhaseError(f"P1/P2 disagree with their plain versions: {bad}")
+    return {"rows": rows, "probe_ms_per_iter": {k: v * 1e3 for k, v in probe_s.items()}}
 
 
 def run(args) -> dict:
@@ -584,7 +824,7 @@ def run(args) -> dict:
     if not args.rehearse and not torch.cuda.is_available():
         raise PhaseError("torch.cuda.is_available() is False")
     try:
-        from nova_tpu_torch import _build
+        from nova_tpu_torch import _build, native
     except ImportError as exc:
         raise PhaseError(f"nova_tpu_torch is not importable: {exc}")
     from nova_tpu_torch.curves.spec import pallas
@@ -606,10 +846,18 @@ def run(args) -> dict:
     # -- phase 1: build -------------------------------------------------
     log(f"== phase 1: build ({torch.__version__}, CUDA {torch.version.cuda})")
     smi = "rehearsal on the CPU: no card"
-    if not args.rehearse:
+    # the native host binding (g++) builds while nvcc builds the kernels
+    with ThreadPoolExecutor(1) as ex:
         t0 = time.perf_counter()
-        _build.lib()
-        log(f"build: {time.perf_counter() - t0:.1f} s ({_build.build_info})")
+        native_ok = ex.submit(lambda: (native.available(), time.perf_counter() - t0))
+        if not args.rehearse:
+            _build.lib()
+            log(f"build: {time.perf_counter() - t0:.1f} s ({_build.build_info})")
+        ok, native_s = native_ok.result()
+    if not ok:
+        raise PhaseError("the native host binding did not build (native/nova_native.cpp)")
+    log(f"native host binding: built or found in {native_s:.1f} s")
+    if not args.rehearse:
         with open(os.path.join(_build.build_info["dir"], "ptxas.log")) as fh:
             for line in fh:
                 if "registers" in line or "spill" in line or line.startswith("=="):
@@ -836,21 +1084,30 @@ def run(args) -> dict:
         profile_window(torch, lambda: CommitmentEngine.commit(ck, v), reps, "commits")
 
     fold = fold_step(args, torch, dev, workers, ck, scal)
+    comp = compress(args, torch, dev, fold["pp"], fold["rs"])
+    ubench = field_ubench(args, torch, dev)
+    log("compression: " + json.dumps(comp))
+    log("field microbenchmark: " + json.dumps(ubench))
     log(f"== done: all phases passed")
 
     rows = []
     for name in REPLACES:
         if name == "stage":
             row = dict(fold["row"])
+        elif name in UBENCH_KERNELS:
+            row = {k: ubench["rows"][name][k] for k in
+                   ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
         else:
             ms, plain_ms, (b_ms, b_by) = timed[name]
-            err = max(errs[name], fold["kernel_errs"][name])
+            err = max(errs[name], fold["kernel_errs"][name],
+                      comp["k1_err"] if name == "mont_mul" else 0)
             row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], **row, "library_ms": None,
             "fold_step_launches": fold["fold_launches"][name],
+            "compress_launches": comp["launches"][name],
         })
     return {"smi": smi, "kernels": rows, "msm": msm}
 

@@ -6,18 +6,25 @@ for Hopper (``csrc/``, built by ``nvcc`` at first use, see ``_build.py``).
 It imports neither ``jax`` nor ``nova_tpu``: host-only modules it needs
 are its own copies.
 
-Ported so far (the device Pedersen commit and the IVC fold step):
+Ported so far (the device Pedersen commit, the IVC fold step and its
+compression):
 
 - ``fields``   -- field specs (host ints) and ``TField``, the 16-bit-limb
   Montgomery engine on ``(N, 16)`` int32 tensors; kernels K1-K3.
 - ``curves``   -- curve specs, the host Pippenger, XYZZ points.
 - ``ops``      -- ``FVec``, the fixed-base MSM (``msm3``; kernels K4, K5),
-  the int-scalar MSM (``msm2.msm_device2``; kernel B6), SpMV and folds.
+  the int-scalar MSM (``msm2.msm_device2``; kernel B6), SpMV and folds,
+  the device outer sumcheck (``sumcheck``).
 - ``provider`` -- Keccak (Shake256, the transcript), hash-to-curve,
-  Poseidon, the engines and the Pedersen engine.
+  Poseidon, the engines, the Pedersen engine and IPA.
+- ``native``   -- the ctypes binding of the C++ host kernels
+  (``native/nova_native.cpp``, built with g++ into ``_build/``).
+- ``spartan``  -- polynomials, sumchecks, batch evaluation and the
+  RelaxedR1CSSNARK.
 - ``r1cs``, ``frontend``, ``gadgets``, ``nova`` -- the R1CS layer, the
   constraint-system frontend, the in-circuit gadgets, NIFS, the augmented
-  circuit and ``PublicParams``/``RecursiveSNARK``.
+  circuit, ``PublicParams``/``RecursiveSNARK`` and ``CompressedSNARK``.
+- ``perf``     -- the field microbenchmark (kernels P1, P2).
 - ``interop``  -- numpy arrays of the JAX package's state -> port objects.
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes

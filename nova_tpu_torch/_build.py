@@ -27,7 +27,7 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
-SOURCES = ("field_kernels.cu", "msm_kernels.cu", "stage_kernel.cu")
+SOURCES = ("field_kernels.cu", "msm_kernels.cu", "stage_kernel.cu", "ubench_kernels.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +43,8 @@ LAUNCHES = {
     "accum": 0,
     "bucket_reduce": 0,
     "stage": 0,
+    "mont16_chain": 0,
+    "mont8_chain": 0,
 }
 
 # filled by build(): {"dir", "seconds", "built"} of the library in use
@@ -59,6 +61,8 @@ _SIGNATURES = {
     "nt_accum": [_i32, _i32] + [_vp] * 14 + [_i32, _i32, _vp, _vp],
     "nt_bucket_reduce": [_vp] * 12 + [_i64, _i32, _vp, _vp],
     "nt_stage": [_i32, _i32] + [_vp] * 11 + [_i64, _i32, _vp, _vp],
+    "nt_mont16_chain": [_vp, _vp, _vp, _i64, _i32, _vp],
+    "nt_mont8_chain": [_vp, _vp, _vp, _i64, _i32, _vp],
 }
 
 

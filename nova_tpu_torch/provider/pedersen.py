@@ -8,10 +8,12 @@ Keys are cached on disk in the port's own cache directory, in the same
 ``.npy`` row format as the JAX package.
 
 Routing: an ``FVec`` always takes the fixed-base device MSM
-(``msm_device3_mont``) on the device it lives on; a plain int list of at
-least DEVICE_THRESHOLD entries takes the int-scalar device MSM
-(``msm_device2``) on the key's device, a shorter one the host Pippenger;
-``commit_small`` sends long lists to the device MSM with a bit bound.
+(``msm_device3_mont``) on the device it lives on; an ``HVec`` takes the
+native host MSM when the native binding is available; a plain int list of
+at least DEVICE_THRESHOLD entries takes the int-scalar device MSM
+(``msm_device2``) on the key's device, a shorter one the pure-Python host
+Pippenger; ``commit_small`` sends long lists to the device MSM with a bit
+bound.
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ class CommitmentKey:
     h: AffinePoint  # blinding generator
     device: object = None  # where device_bases2 marshals (CUDA if None)
     _db: object = field(default=None, repr=False, compare=False)
+    _host: object = field(default=None, repr=False, compare=False)
 
     def __len__(self):
         return len(self.ck)
@@ -93,6 +96,52 @@ class CommitmentKey:
             )
             self._db = db
         return db
+
+    def host_arrays(self, n: int):
+        """Limb-marshalled generator arrays for native.msm_cached, cached
+        (one Python-int -> limb conversion per key)."""
+        from nova_tpu_torch import native
+
+        arrs = self._host
+        if arrs is None or arrs[0].shape[0] < n:
+            arrs = native.marshal_points(self.ck[: max(n, len(self.ck))])
+            self._host = arrs
+        return arrs
+
+    # split/combine/fold/scale for IPA (CommitmentKeyExtTrait,
+    # src/provider/pedersen.rs:431-529)
+    def split_at(self, n: int):
+        """(first n generators, the rest). The left piece is a prefix, so it
+        shares the marshalled host arrays and device bases."""
+        left = CommitmentKey(self.curve, self.ck[:n], self.h, self.device)
+        if self._host is not None and self._host[0].shape[0] >= n:
+            left._host = self._host
+        left._db = self._db
+        return left, CommitmentKey(self.curve, self.ck[n:], self.h, self.device)
+
+    def combine(self, other: "CommitmentKey") -> "CommitmentKey":
+        return CommitmentKey(self.curve, self.ck + other.ck, self.h, self.device)
+
+    def fold(self, w1: int, w2: int) -> "CommitmentKey":
+        """[w1 * L_i + w2 * R_i] over the two halves."""
+        from nova_tpu_torch import native
+
+        half = len(self.ck) // 2
+        L, R = self.ck[:half], self.ck[half:]
+        if native.available() and half > 0:
+            ck = native.ec_fold(L, R, w1, w2)
+        else:
+            ck = [l.mul(w1).add(r.mul(w2)) for l, r in zip(L, R)]
+        return CommitmentKey(self.curve, ck, self.h, self.device)
+
+    def scale(self, r: int) -> "CommitmentKey":
+        from nova_tpu_torch import native
+
+        if native.available() and len(self.ck) > 1:
+            return CommitmentKey(self.curve, native.ec_scale(self.ck, r), self.h,
+                                 self.device)
+        return CommitmentKey(self.curve, [g.mul(r) for g in self.ck], self.h,
+                             self.device)
 
 
 @dataclass
@@ -237,9 +286,12 @@ class CommitmentEngine:
 
     @staticmethod
     def commit(ck: CommitmentKey, v: Sequence[int], r: int = 0) -> Commitment:
-        from nova_tpu_torch.ops.fvec import FVec
+        from nova_tpu_torch import native
+        from nova_tpu_torch.ops.fvec import FVec, HVec
 
         assert len(ck.ck) >= len(v), (len(ck.ck), len(v))
+        if isinstance(v, HVec) and native.available():
+            return CommitmentEngine.commit_limbs(ck, v.limbs64(), r)
         if isinstance(v, FVec):
             from nova_tpu_torch.ops.msm3 import msm_device3_mont
 
@@ -256,6 +308,20 @@ class CommitmentEngine:
             acc = msm_device2(v, device_bases=ck.device_bases2(len(v)), reuse=True)
             return _with_blind(ck, acc, r)
         return _with_blind(ck, host_msm(v, ck.ck[: len(v)]), r)
+
+    @staticmethod
+    def commit_limbs(ck: CommitmentKey, vl, r: int = 0) -> Commitment:
+        """Commit to a vector given as (n, 4) uint64 normal-form limbs (the
+        native kernels' boundary format)."""
+        from nova_tpu_torch import native
+
+        n = vl.shape[0]
+        assert len(ck.ck) >= n
+        if native.available():
+            acc = native.msm_cached(ck.curve, ck.host_arrays(n), vl)
+        else:
+            acc = host_msm(native.limbs_to_ints(vl), ck.ck[:n])
+        return _with_blind(ck, acc, r)
 
     @staticmethod
     def batch_commit(ck: CommitmentKey, vs, rs) -> list:

@@ -5,8 +5,10 @@ Vectors are Python-int lists or device-resident FVecs at this level; the
 heavy lifting (SpMV over big shapes, commitments, folds over long vectors)
 goes to :mod:`nova_tpu_torch.ops` at or above DEVICE_THRESHOLD /
 FOLD_DEVICE_THRESHOLD, on the commitment key's device (or the device of the
-FVecs folded). Where the JAX package calls its native host binding, the
-port takes that package's pure-Python branch: the numbers are the same.
+FVecs folded). The fold step's own routes take the JAX package's
+pure-Python branch where it calls its native host binding (the numbers are
+the same); the compression path's SpMV (``multiply_vec_l``) and, below
+DEVICE_THRESHOLD, its random instance are native.
 
 z layout everywhere: z = [W (num_vars), u, X (num_io)]
 (src/r1cs/mod.rs:459,504).
@@ -18,7 +20,7 @@ import secrets
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
-from nova_tpu_torch import constants
+from nova_tpu_torch import constants, native
 from nova_tpu_torch.constants import BN_LIMB_WIDTH, BN_N_LIMBS
 from nova_tpu_torch.errors import (
     InvalidIndexError,
@@ -41,7 +43,7 @@ class SparseMatrix:
     column count.
     """
 
-    __slots__ = ("field", "data", "indices", "indptr", "cols")
+    __slots__ = ("field", "data", "indices", "indptr", "cols", "_native_cache")
 
     def __init__(self, field: FieldSpec, data, indices, indptr, cols):
         self.field = field
@@ -49,6 +51,7 @@ class SparseMatrix:
         self.indices = list(indices)
         self.indptr = list(indptr)
         self.cols = cols
+        self._native_cache = None
 
     @staticmethod
     def new(field: FieldSpec, triples: Sequence[Tuple[int, int, int]], rows: int, cols: int):
@@ -81,6 +84,18 @@ class SparseMatrix:
             for k in range(self.indptr[r], self.indptr[r + 1]):
                 yield (r, self.indices[k], self.data[k])
 
+    def native_cache(self):
+        """Marshalled rep for the native SpMV kernel, built once."""
+        if self._native_cache is None:
+            self._native_cache = native.marshal_matrix(
+                self.field.p, self.data, self.indices, self.indptr
+            )
+        return self._native_cache
+
+    def multiply_vec_l(self, z):
+        """SpMV on (n, 4) uint64 limb arrays via the native kernel."""
+        return native.spmv_l(self.field.p, self.native_cache(), z)
+
     def multiply_vec(self, z: Sequence[int]) -> List[int]:
         p = self.field.p
         out = []
@@ -111,6 +126,15 @@ class SparseMatrix:
             and self.indptr == other.indptr
             and self.cols == other.cols
         )
+
+
+def _vec_limbs(v, p):
+    """(n, 4) uint64 normal-form limbs of a vector (FVec/HVec or ints)."""
+    from nova_tpu_torch.ops.fvec import FVec, HVec
+
+    if isinstance(v, (FVec, HVec)):
+        return v.limbs64()
+    return native.ints_to_limbs([x % p for x in v])
 
 
 def _vec_device(*vs):
@@ -160,6 +184,14 @@ class R1CSShape:
         )
 
     # --- SpMV ---
+    def multiply_vec_l(self, zl):
+        """(Az, Bz, Cz) on (n, 4) uint64 limbs via the native kernels."""
+        return (
+            self.A.multiply_vec_l(zl),
+            self.B.multiply_vec_l(zl),
+            self.C.multiply_vec_l(zl),
+        )
+
     def multiply_vec(self, z: Sequence[int], device=None):
         """(Az, Bz, Cz) as int lists; on `device` (CUDA unless given) at or
         above DEVICE_THRESHOLD constraints."""
@@ -319,10 +351,22 @@ class R1CSShape:
         r_W = secrets.randbelow(p)
         r_E = secrets.randbelow(p)
         u = Z[self.num_vars]
-        AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
+        # below DEVICE_THRESHOLD the SpMV and both commits are native, as
+        # in the JAX package; at or above it they take the device routes
+        host = self.num_cons < constants.DEVICE_THRESHOLD and native.available()
+        if host:
+            AZ, BZ, CZ = (native.limbs_to_ints(v)
+                          for v in self.multiply_vec_l(native.ints_to_limbs(Z)))
+        else:
+            AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
         E = [(az * bz - u * cz) % p for az, bz, cz in zip(AZ, BZ, CZ)]
-        comm_W = CommitmentEngine.commit(ck, Z[: self.num_vars], r_W)
-        comm_E = CommitmentEngine.commit(ck, E, r_E)
+        if host:
+            comm_W = CommitmentEngine.commit_limbs(
+                ck, native.ints_to_limbs(Z[: self.num_vars]), r_W)
+            comm_E = CommitmentEngine.commit_limbs(ck, native.ints_to_limbs(E), r_E)
+        else:
+            comm_W = CommitmentEngine.commit(ck, Z[: self.num_vars], r_W)
+            comm_E = CommitmentEngine.commit(ck, E, r_E)
         inst = RelaxedR1CSInstance(comm_W, comm_E, list(Z[self.num_vars + 1 :]), u)
         wit = RelaxedR1CSWitness(Z[: self.num_vars], r_W, E, r_E)
         return inst, wit

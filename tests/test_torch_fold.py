@@ -2,7 +2,8 @@
 ``nova.nifs`` and the int-list route of ``provider.pedersen``) against the
 JAX package on CPU, with the device routes forced by lowered thresholds in
 both packages (``NOVA_TPU_FORCE_DEVICE=1`` in the JAX package, as
-tests/test_fvec.py does).
+tests/test_fvec.py does), except for the NIFS fold sequence, whose JAX
+reference takes its host route.
 
 Shapes and keys are carried across with ``nova_tpu_torch.interop``; inputs
 come from numpy seeds. Tolerance: exact throughout (field vectors as ints,
@@ -12,8 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-import nova_tpu.constants as jconstants
-import nova_tpu.r1cs as jr1cs
 from nova_tpu.curves.spec import pallas as JCURVE
 from nova_tpu.fields.jfield import JField
 from nova_tpu.nova.nifs import NIFS as JNIFS
@@ -96,15 +95,6 @@ def _pt(c):
 
 def _inst(U):
     return (_pt(U.comm_W), _pt(U.comm_E), list(U.X), U.u)
-
-
-@pytest.fixture
-def forced(monkeypatch):
-    """Device routes at any size in both packages."""
-    monkeypatch.setenv("NOVA_TPU_FORCE_DEVICE", "1")
-    for mod in (jconstants, jr1cs):
-        monkeypatch.setattr(mod, "FOLD_DEVICE_THRESHOLD", 1)
-    monkeypatch.setattr(constants, "FOLD_DEVICE_THRESHOLD", 1)
 
 
 def _random_shape(seed, rows=64, cols=48, nnz=300, num_io=2):
@@ -190,7 +180,12 @@ def _fold_sequence(pkg, S, ck):
     return U_r, W_r
 
 
-def test_nifs_fold_sequence_matches_reference(forced):
+def test_nifs_fold_sequence_matches_reference(monkeypatch):
+    """The port's folds on its device routes (FVec folds, fixed-base
+    commits) against the JAX package's folds on its host route: the same
+    values (the JAX package holds its device routes to its host route in
+    tests/test_fvec.py), without compiling its XLA device programs."""
+    monkeypatch.setattr(constants, "FOLD_DEVICE_THRESHOLD", 1)
     jS = tiny_r1cs(JPE)
     jck = jS.commitment_key()
     tS, tck = port_shape(jS), port_key(jck)

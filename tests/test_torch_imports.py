@@ -40,6 +40,9 @@ def test_import_leaves_jax_and_nova_tpu_out():
         "import nova_tpu_torch.gadgets.ecc, nova_tpu_torch.gadgets.bignat\n"
         "import nova_tpu_torch.gadgets.poseidon_circuit, nova_tpu_torch.nova\n"
         "import nova_tpu_torch.nova.circuit, nova_tpu_torch.nova.ivc\n"
+        "import nova_tpu_torch.native, nova_tpu_torch.spartan, nova_tpu_torch.spartan.snark\n"
+        "import nova_tpu_torch.ops.sumcheck, nova_tpu_torch.provider.ipa\n"
+        "import nova_tpu_torch.nova.compressed, nova_tpu_torch.perf.ubench_field\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nova_tpu' or m.startswith('nova_tpu.')]\n"
         "assert not bad, bad\n"
@@ -62,6 +65,17 @@ def test_source_scan_finds_no_jax_or_nova_tpu_import():
         assert not _BAD_IMPORT.search(text), path
 
 
+def test_native_source_is_the_shared_one():
+    """The binding builds the repository's native/nova_native.cpp into the
+    port's git-ignored build directory, never beside the JAX package."""
+    from nova_tpu_torch import native
+
+    assert native.SRC == os.path.join(ROOT, "native", "nova_native.cpp")
+    assert native.BUILD_ROOT == os.path.join(PKG, "_build")
+    with open(os.path.join(ROOT, ".gitignore")) as fh:
+        assert "nova_tpu_torch/_build/" in fh.read().split()
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is exercised by chip_smoke.py")
@@ -73,6 +87,13 @@ def test_entry_points_default_to_cuda():
         FVec.from_ints(pallas.scalar, [1, 2, 3])
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceBases2(pallas, [])
+    from nova_tpu_torch.ops.sumcheck import DevicePoly
+    from nova_tpu_torch.perf import ubench_field
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevicePoly(pallas.scalar, [1, 2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ubench_field.inputs(8)
     v = FVec.from_ints(pallas.scalar, [1, 2, 3], device="cpu")
     assert v.device.type == "cpu" and v.to_ints() == [1, 2, 3]
 

@@ -3,8 +3,9 @@ Poseidon RO, the Keccak transcript, RecursiveSNARK new/prove_step/verify)
 against the JAX package on CPU.
 
 Public parameters are carried across with ``interop.public_params`` (the
-shapes' CSR arrays and the keys' generator rows), so the port derives no
-key in pure Python. Randomness: ``secrets.randbelow`` is patched to one
+shapes' CSR arrays and the keys' generator rows); the JAX package's own
+PublicParams are built from its ShapeCS shapes and keys the port derives
+in a process pool (``reference_pp``). Randomness: ``secrets.randbelow`` is patched to one
 seeded generator, restarted from the same seed for each package, and both
 packages draw in the same order. Tolerance: exact (instances, witnesses,
 outputs and digests equal; commitments as affine points)."""
@@ -15,12 +16,15 @@ import secrets
 import pytest
 import torch
 
-from nova_tpu.frontend.constraint_system import ONE as JONE, lc as jlc
+from nova_tpu.frontend.constraint_system import ONE as JONE, ShapeCS as JShapeCS, lc as jlc
+from nova_tpu.curves.spec import AffinePoint as JAffine
 from nova_tpu.frontend.num import AllocatedNum as JNum
+from nova_tpu.nova.circuit import NovaAugmentedCircuit as JAug
 from nova_tpu.nova.circuit import StepCircuit as JStep, TrivialCircuit as JTrivial
 from nova_tpu.nova.ivc import PublicParams as JPP, RecursiveSNARK as JRS
 from nova_tpu.provider.engines import PallasEngine as JPE, VestaEngine as JVE
 from nova_tpu.provider.keccak import Keccak256Transcript as JTranscript
+from nova_tpu.provider.pedersen import CommitmentKey as JCommitmentKey
 from nova_tpu.provider.poseidon import PoseidonRO as JRO, PoseidonROConstants as JROC
 
 from nova_tpu_torch import interop
@@ -36,6 +40,7 @@ from nova_tpu_torch.nova.ivc import PublicParams as TPP, RecursiveSNARK as TRS
 from nova_tpu_torch.ops.fvec import as_list
 from nova_tpu_torch.provider.engines import PallasEngine as TPE, VestaEngine as TVE
 from nova_tpu_torch.provider.keccak import Keccak256Transcript as TTranscript
+from nova_tpu_torch.provider.pedersen import CommitmentEngine as TCE
 from nova_tpu_torch.provider.poseidon import PoseidonRO as TRO, PoseidonROConstants as TROC
 
 from tests.test_torch_fold import key_rows, shape_arrays
@@ -84,9 +89,44 @@ def carried(jpp, device="cpu"):
     )
 
 
+def augmented_shapes(pkg, step):
+    """Both augmented circuits' shapes (the step circuit on the primary, the
+    trivial one on the secondary), synthesized by one package's ShapeCS the
+    way its PublicParams.setup does."""
+    CS, Aug, Trivial, ROC, (e1, e2) = pkg
+    shapes = []
+    for e_circ, primary, field, c in ((e2, True, e1.scalar, step),
+                                      (e1, False, e2.scalar, Trivial())):
+        cs = CS(field)
+        Aug(e_circ, primary, None, c, ROC(e_circ.base)).synthesize(cs)
+        shapes.append(cs.r1cs_shape())
+    return shapes
+
+
+JAX = (JShapeCS, JAug, JTrivial, JROC, (JPE, JVE))
+PORT = (ShapeCS, NovaAugmentedCircuit, TTrivial, TROC, (TPE, TVE))
+
+
+def reference_pp(step):
+    """The JAX package's PublicParams for `step`, built through its own
+    constructor from its own shapes, with keys whose generators the port
+    derives in a process pool and caches (the JAX package derives them
+    serially; tests/test_torch_pedersen.py holds the two derivations
+    equal)."""
+    shapes = augmented_shapes(JAX, step)
+    keys = []
+    for S, je, te in zip(shapes, (JPE, JVE), (TPE, TVE)):
+        tck = TCE.setup(te.curve, b"ck", max(S.num_cons, S.num_vars), device="cpu")
+        gens = [JAffine(je.curve, g.x, g.y, g.infinity) for g in [tck.h] + tck.ck]
+        keys.append(JCommitmentKey(je.curve, gens[1:], gens[0]))
+    pp = JPP(JPE, JVE, step.arity(), shapes[0], keys[0], shapes[1], keys[1])
+    pp.digest()
+    return pp
+
+
 @pytest.fixture(scope="module")
 def cubic_pp():
-    jpp = JPP.setup(JPE, JVE, cubic(JStep, JNum, JONE, jlc))
+    jpp = reference_pp(cubic(JStep, JNum, JONE, jlc))
     return jpp, carried(jpp)
 
 
@@ -98,17 +138,14 @@ def _matrices(S):
 
 def test_augmented_shapes_match_reference():
     """The port's ShapeCS synthesis of both augmented circuits (trivial step
-    circuit) gives the JAX package's matrices: 9,818 / 10,349 constraints."""
-    jpp = JPP.setup(JPE, JVE, JTrivial())
-    shapes = []
-    for e_circ, primary, field in ((TVE, True, TPE.scalar), (TPE, False, TVE.scalar)):
-        cs = ShapeCS(field)
-        NovaAugmentedCircuit(e_circ, primary, None, TTrivial(), TROC(e_circ.base)).synthesize(cs)
-        shapes.append(cs.r1cs_shape())
-    assert (shapes[0].num_cons, shapes[1].num_cons) == (9818, 10349)
-    assert _matrices(shapes[0]) == _matrices(jpp.r1cs_shape_primary)
-    assert _matrices(shapes[1]) == _matrices(jpp.r1cs_shape_secondary)
-    assert shapes[0].digest() == jpp.r1cs_shape_primary.digest()
+    circuit) gives the JAX package's matrices and digest: 9,818 / 10,349
+    constraints."""
+    j1, j2 = augmented_shapes(JAX, JTrivial())
+    t1, t2 = augmented_shapes(PORT, TTrivial())
+    assert (t1.num_cons, t2.num_cons) == (9818, 10349)
+    assert _matrices(t1) == _matrices(j1)
+    assert _matrices(t2) == _matrices(j2)
+    assert t1.digest() == j1.digest()
 
 
 @pytest.mark.parametrize("engines", [(JPE, TPE), (JVE, TVE)], ids=["pallas", "vesta"])
