@@ -23,10 +23,11 @@ result line):
    Pippenger (msm_host) and batch against sequential;
 3. each kernel against its plain PyTorch version on the main path's
    shapes (K1 at 2^20 elements of both Pallas fields, K2/K3 at 2^16 lanes
-   with identity, P = Q and P = -Q lanes, K4 on the real (R, C) grid in
-   fast/complete affine and fast/complete XYZZ modes, K5 on the real
-   2^15-bucket table),
-   compared bitwise;
+   with identity, P = Q and P = -Q lanes, K4 on the commit's sorted
+   sequence (level 1: affine bases read through the sort permutation) and
+   on its column carries (level 2: XYZZ), each in fast and complete mode,
+   K5 on the real 2^15-bucket table), compared bitwise (K4: the tail
+   table, the carries and the flags);
 4. timing with CUDA events (median of 5 runs after warm-up): each
    kernel and its plain version, and the msm3m workload (sequential and
    batch-of-4 points/s);
@@ -290,8 +291,7 @@ def kernel_vs_plain(torch, name: str, args) -> int:
                               msm2.bucket_reduce_groups_plain(tf, table, m))
         return max(max_abs_err(torch, gS, rS), max_abs_err(torch, gW, rW))
     if name == "accum":
-        _, d_grid, pts, mode = args
-        got, ref = msm3.accum(tf, d_grid, pts, mode), msm3.accum_plain(tf, d_grid, pts, mode)
+        got, ref = msm3.accum(*args), msm3.accum_plain(*args)
         return max(max_abs_err(torch, got[0], ref[0]), max_abs_err(torch, got[1], ref[1]),
                    int((got[2] - ref[2]).abs().max().item()))
     raise ValueError(name)
@@ -299,8 +299,12 @@ def kernel_vs_plain(torch, name: str, args) -> int:
 
 def first_input(args):
     """The first tensor argument of a kernel wrapper (after its TField): a
-    limb tensor, a digit grid, or the x coordinates of a point dict."""
-    return args[1]["x"] if isinstance(args[1], dict) else args[1]
+    limb tensor, a digit sequence, or the x coordinates of a point dict."""
+    for a in args[1:]:
+        if isinstance(a, dict):
+            return a["x"]
+        if hasattr(a, "device"):
+            return a
 
 
 def profile_window(torch, fn, reps: int, what: str) -> None:
@@ -372,6 +376,26 @@ def stage_bound(masks, mode: str, affine: bool):
     return bound(nbytes, MUL_OPS * sum(a * m for a, m in zip(active, muls)))
 
 
+def accum_bound(sorted_d, R: int, C: int, tails):
+    """K4's least time on this run's inputs, whatever implements it: a base
+    row (x and y, 128 B) and a sign read for each live (nonzero-digit)
+    cell, the digit (4 B) and the sort index (8 B) read once per cell, the
+    tail rows that this run writes and the C carries (4 coordinates) and
+    flags written once; or the 10 products of each mixed add, one per live
+    cell whose digit repeats the one above it in its column."""
+    cells = sorted_d.view(C, R)
+    live = int(cells.ne(0).sum())
+    repeat = int(((cells[:, 1:] == cells[:, :-1]) & (cells[:, 1:] != 0)).sum())
+    written = int(tails["zz"].ne(0).any(-1).sum()) + C
+    nbytes = live * (2 * ROW + 4) + R * C * (4 + 8) + written * 4 * ROW + 4 * C
+    return bound(nbytes, MUL_OPS * 10 * repeat)
+
+
+def launch_delta(_build, before: dict) -> dict:
+    """Launches of each kernel since the snapshot `before`."""
+    return {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+
+
 def sync(torch) -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -416,20 +440,23 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     rs = RecursiveSNARK.new(pp, circuit, z0)
     sync(torch)
     new_s = time.perf_counter() - t0
-    step_s, step_stage, step_phases = [], [], []
+    step_s, step_launches, step_phases = [], [], []
     for _ in range(FOLD_STEPS):
-        before = _build.LAUNCHES["stage"]
+        before = dict(_build.LAUNCHES)
         profiling.global_reset()
         t0 = time.perf_counter()
         rs.prove_step(pp, circuit)
         sync(torch)
         step_s.append(time.perf_counter() - t0)
-        step_stage.append(_build.LAUNCHES["stage"] - before)
+        step_launches.append(launch_delta(_build, before))
         step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
+    step_stage = [sl["stage"] for sl in step_launches]
+    before = dict(_build.LAUNCHES)
     t0 = time.perf_counter()
     out = rs.verify(pp, FOLD_STEPS, z0)
     sync(torch)
     verify_s = time.perf_counter() - t0
+    verify_launches = launch_delta(_build, before)
     launches = dict(_build.LAUNCHES)
     del os.environ["NOVA_PROFILE"]
     log(f"new {new_s:.2f} s; prove_step s {[round(s, 3) for s in step_s]}; "
@@ -459,6 +486,9 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
         "prove_step_all_ms": [s * 1e3 for s in step_s],
         "phase_ms": phases, "verify_ms": verify_s * 1e3,
         "stage_launches_per_step": step_stage, "launches": launches,
+        # per call: each replayed step (steps 3-5; step 1 only bumps the
+        # counter, step 2 builds the tape) and verify
+        "launches_per_replayed_step": step_launches[2:], "verify_launches": verify_launches,
     }
     log("fold step: " + json.dumps(fold))
 
@@ -522,12 +552,20 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     # reduces its buckets (K5, then K3 and K2); a commit of the running
     # witness (verify's route) runs K4; the cross-term's SpMV runs K1
     fresh = msm2.DeviceBases2.from_tensors(pallas, db.x, db.y, db.inf)
+    before = dict(_build.LAUNCHES)
     with largest_calls({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
                         "xyzz_double": (fk, "xyzz_double"),
                         "bucket_reduce": (msm2, "bucket_reduce_groups")}) as seen:
         again = msm2.msm_device2(witness, device_bases=fresh, reuse=True)
     if again != got2:
         raise PhaseError(f"msm_device2 with the precompute rebuilt: {again} != {got2}")
+    cold = launch_delta(_build, before)
+    before = dict(_build.LAUNCHES)
+    msm2.msm_device2(witness, device_bases=fresh, reuse=True)
+    warm = launch_delta(_build, before)
+    precompute = {k: cold[k] - warm[k] for k in cold}
+    log(f"msm_device2 launches: with the window precompute {cold}, without {warm}; "
+        f"the precompute alone {precompute}")
     sf = TField(pallas.scalar)
     with largest_calls({"accum": (msm3, "accum")}) as seen4:
         CommitmentEngine.commit(pp.ck_primary, FVec.coerce(sf, rs.r_W_primary.W, dev))
@@ -605,6 +643,7 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
                 "bound_by": main["bound_by"]},
         "fold": fold, "stage_modes": stage_rows, "msm_device2": msm2_t,
         "fold_launches": launches, "kernel_errs": kernel_errs, "commit_T_ms": t_ms,
+        "msm_device2_launches": warm, "witness_precompute_launches": precompute,
         "pp": pp, "rs": rs,
     }
 
@@ -887,6 +926,7 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     v = FVec.from_ints(pallas.scalar, scal, device=dev)
     com = CommitmentEngine.commit(ck, v)
+    first_commit = dict(_build.LAUNCHES)  # includes the key's window precompute
     vs = [FVec.from_ints(pallas.scalar, s, device=dev) for s in batch]
     bcoms = CommitmentEngine.batch_commit(ck, vs, [0] * 4)
     com_small = CommitmentEngine.commit_small(ck, small)
@@ -960,32 +1000,29 @@ def run(args) -> dict:
 
     W = msm3._windows_for(c, pallas.scalar.p)
     sorted_d, st = msm3._prep_mont(db, v.m, c, W)
-    d_grid, pts = st
-    R, C = d_grid.shape
-    log(f"K4 grid: R = {R}, C = {C} (n_s = {R * C})")
-    acc_err = 0
-    for mode in ("fast", "complete"):
-        got = msm3.accum(bf, d_grid, pts, mode)
-        ref = msm3.accum_plain(bf, d_grid, pts, mode)
-        acc_err = max(acc_err, max_abs_err(torch, got[0], ref[0]),
-                      max_abs_err(torch, got[1], ref[1]),
-                      int((got[2] - ref[2]).abs().max().item()))
-    flush, colend, flag = msm3.accum(bf, d_grid, pts, "fast")
-    dend = d_grid[R - 1].contiguous()
-    C2 = max(128, C // msm3._R2)
-    R2 = C // C2
-    gi = msm3._grid_index(R2, C2, dev)
-    d2 = dend[gi].view(R2, C2)
-    p2 = {k: t[gi].view(R2, C2, 16) for k, t in colend.items()}
-    for mode in ("fast", "complete"):
-        got = msm3.accum(bf, d2, p2, mode)
-        ref = msm3.accum_plain(bf, d2, p2, mode)
-        acc_err = max(acc_err, max_abs_err(torch, got[0], ref[0]),
-                      max_abs_err(torch, got[1], ref[1]),
-                      int((got[2] - ref[2]).abs().max().item()))
-    errs["accum"] = acc_err
+    R, C = st["grid"]
     nb = 1 << (c - 1)
-    totals = msm3._bucket_totals(bf, sorted_d, flush, colend, d_grid, nb)
+    log(f"K4 grid: R = {R}, C = {C} (n_s = {R * C})")
+    # level 1 (affine input read through the sort permutation) and level 2
+    # (the carries, XYZZ input) on the commit's own sequence, in both modes
+    k4_l1 = (bf, (R, C), sorted_d, st["pts"], "fast", nb, st["src"], st["signs"])
+    tail1, colend, _ = msm3.accum(*k4_l1)
+    C2 = max(128, C // msm3._R2)
+    k4_l2 = (bf, (C // C2, C2), msm3._column_ends(sorted_d, R), colend, "fast", nb)
+    acc_err, k4_rows = 0, {}
+    for level, a in (("affine", k4_l1), ("xyzz", k4_l2)):
+        for mode in ("fast", "complete"):
+            args_m = a[:4] + (mode,) + a[5:]
+            got, ref = msm3.accum(*args_m), msm3.accum_plain(*args_m)
+            e = max(max_abs_err(torch, got[0], ref[0]), max_abs_err(torch, got[1], ref[1]),
+                    int((got[2] - ref[2]).abs().max().item()))
+            k4_rows[f"{level}/{mode}"] = {
+                "grid": list(a[1]), "max_abs_err": e, "flagged_columns": int(got[2].sum()),
+                "tails": int(got[0]["zz"].ne(0).any(-1).sum())}
+            acc_err = max(acc_err, e)
+    log("K4 against its plain version (tail table, colend, flag): " + json.dumps(k4_rows))
+    errs["accum"] = acc_err
+    totals = msm3._bucket_totals(bf, sorted_d, tail1, colend, (R, C), nb)
     m = min(nb, msm2._GROUP)
     gS, gW = msm2.bucket_reduce_groups(bf, totals, m)
     rS, rW = msm2.bucket_reduce_groups_plain(bf, totals, m)
@@ -1042,13 +1079,10 @@ def run(args) -> dict:
         cuda_ms(torch, lambda: fk.xyzz_double_limbs(o, Dl), max(1, reps // 2)),
         bound(8 * ROW * L, MUL_OPS * 9 * n_live),
     )
-    repeat = (d_grid[1:] == d_grid[:-1]) & (d_grid[1:] != 0)
-    k4_ops = MUL_OPS * 10 * int(repeat.sum())
-    k4_bytes = R * C * (4 + 2 * ROW + 4 * ROW) + C * (4 * ROW + 4)
     timed["accum"] = (
-        cuda_ms(torch, lambda: msm3.accum(bf, d_grid, pts, "fast"), reps),
-        cuda_ms(torch, lambda: msm3.accum_plain(bf, d_grid, pts, "fast"), 1),
-        bound(k4_bytes, k4_ops),
+        cuda_ms(torch, lambda: msm3.accum(*k4_l1), reps),
+        cuda_ms(torch, lambda: msm3.accum_plain(*k4_l1), 1),
+        accum_bound(sorted_d, R, C, tail1),
     )
     logm = m.bit_length() - 1
     adds = (nb // m) * sum(m - (1 << (r % logm)) for r in range(2 * logm))
@@ -1078,6 +1112,7 @@ def run(args) -> dict:
         "batch4_ms": statistics.median(bat_s) * 1e3,
         "pipelined_pts_per_s": 4 * n / statistics.median(bat_s),
         "launches_per_msm": per_msm,
+        "precompute_launches": {k: first_commit[k] - per_msm[k] for k in per_msm},
     }
     log("msm3m: " + json.dumps(msm))
     if args.profile:
@@ -1108,6 +1143,16 @@ def run(args) -> dict:
             "replaces": REPLACES[name], **row, "library_ms": None,
             "fold_step_launches": fold["fold_launches"][name],
             "compress_launches": comp["launches"][name],
+            "launches_per_call": {
+                "commit": msm["launches_per_msm"][name],
+                "prove_step": [sl[name] for sl in fold["fold"]["launches_per_replayed_step"]],
+                "msm_device2": fold["msm_device2_launches"][name],
+                "compression": comp["launches"][name],
+            },
+            "precompute_launches": {
+                "commit_key": msm["precompute_launches"][name],
+                "witness_key": fold["witness_precompute_launches"][name],
+            },
         })
     return {"smi": smi, "kernels": rows, "msm": msm}
 

@@ -58,7 +58,8 @@ _SIGNATURES = {
     "nt_mont_mul": [_vp, _vp, _vp, _i64, _vp, _vp],
     "nt_xyzz_add": [_vp] * 12 + [_i64, _vp, _vp],
     "nt_xyzz_double": [_vp] * 8 + [_i64, _vp, _vp],
-    "nt_accum": [_i32, _i32] + [_vp] * 14 + [_i32, _i32, _vp, _vp],
+    "nt_accum": [_i32, _i32, _vp, _i64] + [_vp] * 10 + [_i32] + [_vp] * 5
+                + [_i32, _i32, _vp, _vp],
     "nt_bucket_reduce": [_vp] * 12 + [_i64, _i32, _vp, _vp],
     "nt_stage": [_i32, _i32] + [_vp] * 11 + [_i64, _i32, _vp, _vp],
     "nt_mont16_chain": [_vp, _vp, _vp, _i64, _i32, _vp],

@@ -435,6 +435,15 @@ def _compact(keep, size_out: int, ds, rank, pts: dict):
 # ---------------------------------------------------------------------------
 
 
+def _segment_rank(ds):
+    """Rank of each lane in its run of equal values of the sorted `ds`:
+    its distance to the run's head, the first position of its value (the
+    JAX package's idx - cummax(where(heads, idx, 0)); one binary search
+    per lane instead of a scan)."""
+    idx = torch.arange(ds.shape[0], device=ds.device)
+    return idx - torch.searchsorted(ds, ds)
+
+
 def _window_sum(tf: TField, absd, px, py, nb: int, mode: str = "complete"):
     """One window space. absd: (n,) int32 |digits| in [0, nb]; px/py:
     (n, 16) Montgomery affine rows with Y sign-adjusted; digit-0 lanes are
@@ -443,9 +452,7 @@ def _window_sum(tf: TField, absd, px, py, nb: int, mode: str = "complete"):
     dev = absd.device
     ds, order = torch.sort(absd, stable=True)
     pts = {"x": px[order], "y": py[order]}
-    idx = torch.arange(n, device=dev)
-    heads = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), ds[1:] != ds[:-1]])
-    rank = idx - torch.cummax(torch.where(heads, idx, 0), dim=0).values
+    rank = _segment_rank(ds)
     live = ds != 0
     flag = torch.zeros((), dtype=torch.bool, device=dev)
     for si, (rounds, _, w_out) in enumerate(_plan(n, nb)):

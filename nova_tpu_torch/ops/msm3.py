@@ -6,20 +6,21 @@
      share one bucket space; see msm2._precompute_shifted). Scalars are
      reduced to the symmetric range |s'| <= (p-1)/2 with the sign folded
      into the digits, so 255-bit scalars need W = 16 windows at c = 16.
-  2. ONE stable ``torch.sort`` of the W*n |digit| keys and a gather of the
-     points into an (R, C) grid: sorted element j*R + i lands at row i,
-     column j, and the grid is stored row-major so neighbouring columns
-     are neighbours in memory (coalesced row reads in K4).
+  2. ONE stable ``torch.sort`` of the W*n |digit| keys (``_sortpack``).
+     Nothing is gathered: the sorted positions are laid on an (R, C) grid
+     column by column (column j holds positions j*R .. j*R + R-1), and K4
+     reads each cell's base row through the sort permutation.
   3. kernel K4 (``accum``): one thread per column walks its R rows;
-     acc += P (10-mul mixed add) while the digit repeats, else acc is
-     flushed to that row's slot and restarts at P.
-  4. bucket recovery by gather (``_bucket_totals``): bucket b's run ends at
-     sorted position C_b - 1 with C_b = searchsorted(sorted_d, b, right);
-     its partial was flushed at row (C_b-1)%R + 1 of column (C_b-1)//R,
-     or is the column-end carry. The C column-end carries (non-decreasing
-     digits) go through a suffix pass of complete adds (C <= 256) or
-     through K4 again (level 2, XYZZ input, complete adds) and a suffix
-     pass over the level-2 carries.
+     acc += P (10-mul mixed add) while the digit repeats; where it
+     changes, the ended run's total is written to its bucket's row of a
+     tail table (one writer per row: a bucket's run ends once), and acc
+     restarts at P. A run that reaches the column end is the column's
+     carry.
+  4. bucket totals (``_bucket_totals``): the C column-end carries
+     (non-decreasing digits) go through a suffix pass of complete adds
+     (C <= 256) or through K4 again (level 2, XYZZ input, complete adds,
+     its own tail table) and a suffix pass over the level-2 carries; each
+     bucket's total is its tail plus its carry sums.
   5. weighted bucket reduction (msm2._bucket_reduce, kernel K5) and the
      host finish.
 
@@ -255,72 +256,117 @@ def _madd_fast(o, ACC, X2, Y2, live):
     return out, o.is_zero(Pd) & ~p_zero & ~q_zero
 
 
-def accum_plain(tf: TField, d_grid, pts: dict, mode: str):
-    """Plain K4 (msm3._accum_xla semantics, plus the fast modes). d_grid:
-    (R, C) int32 |digits|; pts: dict of (R, C, 16) int32 rows, x/y only
-    (affine input) or x/y/zz/zzz. Returns (flush dict of (R, C, 16),
-    colend dict of (C, 16), flag (C,) int32)."""
-    o = tf.ops(d_grid.device)
-    R, C = d_grid.shape
-    affine = "zz" not in pts
+def _cell_points(pts: dict, rows, signs):
+    """The int64 limb points of the cells whose point rows are `rows`: affine
+    (x, y with y taken from yneg where signs[rows] < 0) or XYZZ."""
+    x, y = pts["x"][rows].long(), pts["y"][rows].long()
+    if "zz" in pts:
+        return x, y, pts["zz"][rows].long(), pts["zzz"][rows].long()
+    neg = (signs[rows] < 0)[..., None]
+    return x, torch.where(neg, pts["yneg"][rows].long(), y)
+
+
+def accum_plain(tf: TField, grid, digits, pts: dict, mode: str, nb: int,
+                src=None, signs=None):
+    """Plain K4: msm3._accum_xla over the cells of a sorted sequence, with
+    the run tails written into a bucket table instead of a dense flush.
+
+    The R*C cells lie on an (R, C) grid column by column (column j holds
+    positions j*R .. j*R + R-1); cell p has the |digit| digits[p]
+    (non-decreasing; `digits` may be a strided view) and the point at row
+    src[p] of `pts` (row p without `src`). pts holds affine rows {"x", "y",
+    "yneg"}, y read from yneg where signs[row] < 0, or XYZZ rows {"x", "y",
+    "zz", "zzz"}. Each column is walked down its rows: acc += P while the
+    digit repeats; where it changes, the ended run's total goes to row
+    d - 1 of the tail table when its digit d > 0. Digit 0 is inert (no
+    point, the identity). Modes "fast" (mixed or fast adds, bad & ~boundary
+    flagged per column) and "complete".
+
+    Returns (tails: dict of (nb, 16) int32, zero where no run ends inside a
+    column; colend: dict of (C, 16), each column's final acc; flag (C,))."""
+    R, C = grid
+    dev = digits.device
+    o = tf.ops(dev)
+    pos = torch.arange(R * C, device=dev).view(C, R).t()  # (R, C) positions
+    d_grid = digits[pos]
+    rows = pos if src is None else src[pos]
+    xyzz = "zz" in pts
     one = o.r.expand(C, NUM_LIMBS)
-    zero = torch.zeros((C, NUM_LIMBS), dtype=_I64, device=d_grid.device)
+    zero = torch.zeros((C, NUM_LIMBS), dtype=_I64, device=dev)
     acc = (zero, zero, zero, zero)
-    prev = torch.full((C,), -1, dtype=_I32, device=d_grid.device)
-    bad_any = torch.zeros((C,), dtype=torch.bool, device=d_grid.device)
-    flush = []
+    tails = [torch.zeros((nb + 1, NUM_LIMBS), dtype=_I64, device=dev) for _ in KEYS]
+    prev = torch.full((C,), -1, dtype=d_grid.dtype, device=dev)
+    bad_any = torch.zeros((C,), dtype=torch.bool, device=dev)
     for i in range(R):
         d = d_grid[i]
         live = d != 0
         boundary = d != prev
-        x, y = pts["x"][i].long(), pts["y"][i].long()
-        if affine:
+        # the run that ended here: row prev - 1 (row nb is a sink, dropped)
+        tail = torch.where(boundary & (prev > 0), prev.long() - 1, nb)
+        for t, a in zip(tails, acc):
+            t[tail] = a
+        q = _cell_points(pts, rows[i], signs)
+        if not xyzz:
             z = torch.where(live[:, None], one, 0)
-            q = (x, y, z, z)
-        else:
-            q = (x, y, pts["zz"][i].long(), pts["zzz"][i].long())
+            q = q + (z, z)
         if mode == "fast":
-            if affine:
-                s, bad = _madd_fast(o, acc, x, y, live)
-            else:
+            if xyzz:
                 s, bad = xyzz_add_limbs_fast(o, acc, q)
-            bad_any = bad_any | (bad & ~boundary)
+            else:
+                s, bad = _madd_fast(o, acc, q[0], q[1], live)
+            bad_any = bad_any | (bad & ~boundary & live)
         else:
             s = xyzz_add_limbs(o, acc, q)
-        b = boundary[:, None]
-        flush.append(tuple(torch.where(b, a, 0) for a in acc))
-        acc = tuple(torch.where(b, qc, sc) for qc, sc in zip(q, s))
+        start = boundary[:, None]
+        acc = tuple(
+            torch.where(live[:, None], torch.where(start, qc, sc), torch.where(start, 0, ac))
+            for qc, sc, ac in zip(q, s, acc)
+        )
         prev = d
-    fl = {k: torch.stack([f[c] for f in flush]).to(_I32) for c, k in enumerate(KEYS)}
-    return fl, _from_limbs(acc), bad_any.to(_I32)
+    return (
+        {k: t[:nb].to(_I32) for k, t in zip(KEYS, tails)},
+        _from_limbs(acc), bad_any.to(_I32),
+    )
 
 
-def accum(tf: TField, d_grid, pts: dict, mode: str):
-    """K4: segmented accumulation down the columns of the (R, C) grid; see
-    accum_plain for the contract. Modes: "fast" (degenerate lanes flagged)
-    or "complete"."""
+def accum(tf: TField, grid, digits, pts: dict, mode: str, nb: int,
+          src=None, signs=None):
+    """K4: segmented accumulation down the columns of the (R, C) grid of a
+    sorted sequence, with the base rows read by index and the run tails
+    written to an (nb, 16) table; see accum_plain for the contract."""
     assert mode in ("fast", "complete"), mode
-    keys = KEYS if "zz" in pts else KEYS[:2]
-    ins = [pts[k] for k in keys]
-    if not on_cuda(d_grid, *ins):
-        return accum_plain(tf, d_grid, pts, mode)
-    R, C = d_grid.shape
-    d_grid, *ins = check_i32(d_grid, *ins)
-    if len(ins) == 2:
-        ins = ins + ins  # zz/zzz pointers unused in affine mode
-    flush = {k: ins[0].new_empty((R, C, NUM_LIMBS)) for k in KEYS}
-    colend = {k: ins[0].new_empty((C, NUM_LIMBS)) for k in KEYS}
-    flag = torch.empty((C,), dtype=_I32, device=d_grid.device)
-    with torch.cuda.device(d_grid.device):
+    keys = KEYS if "zz" in pts else ("x", "y", "yneg")
+    ins = [digits] + [pts[k] for k in keys]
+    ins += [t for t in (src, signs) if t is not None]
+    if not on_cuda(*ins):
+        return accum_plain(tf, grid, digits, pts, mode, nb, src, signs)
+    R, C = grid
+    affine = len(keys) == 3
+    if affine and (src is None or signs is None):
+        raise ValueError("affine K4 input is read by index: src and signs are needed")
+    if digits.dtype != _I32 or digits.dim() != 1 or digits.shape[0] < R * C:
+        raise ValueError("digits: (R*C,) int32, contiguous or strided")
+    if src is not None and (src.dtype != _I64 or not src.is_contiguous()):
+        raise ValueError("src: contiguous int64 positions")
+    coords = check_i32(*(pts[k] for k in keys))
+    signs = None if signs is None else check_i32(signs)[0]
+    tails = coords[0].new_zeros((4, nb, NUM_LIMBS))
+    colend = coords[0].new_empty((4, C, NUM_LIMBS))
+    flag = torch.empty((C,), dtype=_I32, device=digits.device)
+    p4 = coords[3] if len(coords) == 4 else coords[2]  # unused with affine input
+    with torch.cuda.device(digits.device):
         err = _build.lib().nt_accum(
-            int(len(keys) == 2), int(mode == "fast"), d_grid.data_ptr(),
-            *(t.data_ptr() for t in ins), *(flush[k].data_ptr() for k in KEYS),
-            *(colend[k].data_ptr() for k in KEYS), flag.data_ptr(), R, C,
-            tf.consts_ptr, _build.stream_of(d_grid),
+            int(affine), int(mode == "fast"), digits.data_ptr(), digits.stride(0),
+            0 if src is None else src.data_ptr(),
+            0 if signs is None else signs.data_ptr(),
+            *(t.data_ptr() for t in coords[:3]), p4.data_ptr(),
+            *(tails[i].data_ptr() for i in range(4)), nb,
+            *(colend[i].data_ptr() for i in range(4)), flag.data_ptr(), R, C,
+            tf.consts_ptr, _build.stream_of(digits),
         )
         _build.check(err, "accum")
         _build.LAUNCHES["accum"] += 1
-    return flush, colend, flag
+    return dict(zip(KEYS, tails)), dict(zip(KEYS, colend)), flag
 
 
 # ---------------------------------------------------------------------------
@@ -338,34 +384,18 @@ def _grid_shape(n_s: int):
     return n_s // C, C
 
 
-_GRID_IDX: dict = {}
-
-
-def _grid_index(R: int, C: int, device):
-    """Sorted position of each row-major grid cell: cell (i, j) -> j*R + i."""
-    key = (R, C, str(device))
-    if key not in _GRID_IDX:
-        ar = torch.arange(R * C, device=device)
-        _GRID_IDX[key] = ar.view(C, R).t().reshape(-1)
-    return _GRID_IDX[key]
-
-
 def _sortpack(d, fx, fy, fyneg, finf):
-    """digits + window-shifted bases -> (sorted_d (n_s,) int32 ascending,
-    st) where st = (d_grid (R, C), {"x", "y": (R, C, 16)}) is the sorted
-    order laid out on the row-major grid, y negated where the digit is
-    negative. Infinity bases get digit 0 (inert)."""
-    n_s = d.shape[0]
-    R, C = _grid_shape(n_s)
+    """Signed digits and window-shifted bases -> (sorted_d (n_s,) int32
+    ascending |digits|, st), where st = {"grid": (R, C), "src": the sort
+    permutation (n_s,) int64, "signs": d, "pts": {"x", "y", "yneg"}} is
+    what K4 reads: cell p's base is row src[p], with y from yneg where
+    signs[src[p]] < 0. Infinity bases get digit 0 (inert). Nothing is
+    gathered here: K4 reads the base rows by index."""
     absd = torch.where(finf, 0, d.abs())
     sorted_d, sidx = torch.sort(absd, stable=True)
-    src = sidx[_grid_index(R, C, d.device)]
-    neg = (d < 0)[src][:, None]
-    px = fx[src]
-    py = torch.where(neg, fyneg[src], fy[src])
-    d_grid = sorted_d[_grid_index(R, C, d.device)].view(R, C)
-    pts = {"x": px.view(R, C, NUM_LIMBS), "y": py.view(R, C, NUM_LIMBS)}
-    return sorted_d, (d_grid, pts)
+    st = {"grid": _grid_shape(d.shape[0]), "src": sidx, "signs": d,
+          "pts": {"x": fx, "y": fy, "yneg": fyneg}}
+    return sorted_d, st
 
 
 def _suffix_segmented(tf: TField, digs, vals: dict):
@@ -398,48 +428,33 @@ def _take(vals: dict, idx, mask) -> dict:
     return {k: torch.where(mask[:, None], v[idx], 0) for k, v in vals.items()}
 
 
-def _tails(seq, bs, R: int, flush: dict) -> dict:
-    """For each digit of `bs`, the partial sum of its run in the sorted
-    sequence `seq` laid on an (R, len(seq)/R) column-major grid: a run
-    ending at position t is flushed at row t%R + 1 of column t//R, unless
-    it touches the column end (then it is that column's end carry and
-    reads as zero here, as do absent digits)."""
-    right = torch.searchsorted(seq, bs, right=True)
-    exists = right > torch.searchsorted(seq, bs)
-    t = right - 1
-    e = t % R
-    take = exists & (e < R - 1)
-    return _take(
-        {k: v.view(-1, NUM_LIMBS) for k, v in flush.items()},
-        torch.where(take, (e + 1) * (seq.shape[0] // R) + t // R, 0), take,
-    )
+def _column_ends(seq, R: int):
+    """The last digit of each column of `seq` on an (R, len/R) grid laid
+    column by column: a strided view, no copy."""
+    return seq.view(-1, R)[:, R - 1]
 
 
-def _bucket_totals(tf: TField, sorted_d, flush, colend, d_grid, nb: int):
-    """Per-bucket totals (dict of (nb, 16) XYZZ rows) from the level-1
-    flush/colend, fixing up runs that span columns with the column-end
-    carries."""
-    R, C = d_grid.shape
+def _bucket_totals(tf: TField, sorted_d, tail1: dict, colend: dict, grid, nb: int):
+    """Per-bucket totals (dict of (nb, 16) XYZZ rows) from K4's level-1 tail
+    table and column-end carries, fixing up runs that span columns: the C
+    carries (non-decreasing digits) go through a suffix pass of complete
+    adds (C <= 256), or through K4 again (level 2: XYZZ input, complete
+    adds, its own tail table) and a suffix pass over the level-2 carries."""
+    R, C = grid
     dev = sorted_d.device
     bs = torch.arange(1, nb + 1, dtype=sorted_d.dtype, device=dev)
-    tail1 = _tails(sorted_d, bs, R, flush)
-    dend = d_grid[R - 1].contiguous()  # (C,) non-decreasing
+    dend = _column_ends(sorted_d, R)  # (C,) non-decreasing
     if C <= 256:  # C is a power of two: one suffix pass finishes it
+        dend = dend.contiguous()
         sums = _suffix_segmented(tf, dend, colend)
         return xyzz_add(tf, tail1, _take(sums, *_run_heads(dend, bs)))
 
     # level 2: the C carries on an (R2, C2) grid through K4 (complete adds)
     C2 = max(128, C // _R2)
     R2 = C // C2
-    gi = _grid_index(R2, C2, dev)
-    flush2, colend2, _ = accum(
-        tf, dend[gi].view(R2, C2),
-        {k: v[gi].view(R2, C2, NUM_LIMBS) for k, v in colend.items()},
-        "complete",
-    )
-    tail2 = _tails(dend, bs, R2, flush2)
+    tail2, colend2, _ = accum(tf, (R2, C2), dend, colend, "complete", nb)
     # level 3: suffix pass over the C2 level-2 carries
-    dend2 = dend[gi].view(R2, C2)[R2 - 1].contiguous()
+    dend2 = _column_ends(sorted_d, R * R2).contiguous()
     sums3 = _suffix_segmented(tf, dend2, colend2)
     acc = xyzz_add(tf, tail1, tail2)
     return xyzz_add(tf, acc, _take(sums3, *_run_heads(dend2, bs)))
@@ -448,14 +463,15 @@ def _bucket_totals(tf: TField, sorted_d, flush, colend, d_grid, nb: int):
 def _msm3_dispatch(bf: TField, sorted_d, st, c: int):
     """Queue accumulate + finish without waiting for the device; returns a
     handle for _msm3_collect (lets a batch queue every MSM first)."""
-    d_grid, pts = st
-    out, flag = _msm3_finish(bf, sorted_d, d_grid, pts, c, "fast")
+    out, flag = _msm3_finish(bf, sorted_d, st, c, "fast")
     return (bf, sorted_d, st, c, out, flag)
 
 
-def _msm3_finish(bf: TField, sorted_d, d_grid, pts, c: int, mode: str):
-    flush, colend, flag = accum(bf, d_grid, pts, mode)
-    totals = _bucket_totals(bf, sorted_d, flush, colend, d_grid, 1 << (c - 1))
+def _msm3_finish(bf: TField, sorted_d, st, c: int, mode: str):
+    nb = 1 << (c - 1)
+    tail1, colend, flag = accum(bf, st["grid"], sorted_d, st["pts"], mode, nb,
+                                st["src"], st["signs"])
+    totals = _bucket_totals(bf, sorted_d, tail1, colend, st["grid"], nb)
     s = _bucket_reduce(bf, totals)
     return {k: bf.from_mont(v) for k, v in s.items()}, flag.any()
 
@@ -465,8 +481,7 @@ def _msm3_collect(pending):
     sort) when a degenerate fast add was flagged."""
     bf, sorted_d, st, c, out, flag = pending
     if bool(flag.item()):
-        d_grid, pts = st
-        out, _ = _msm3_finish(bf, sorted_d, d_grid, pts, c, "complete")
+        out, _ = _msm3_finish(bf, sorted_d, st, c, "complete")
     return {k: v.cpu() for k, v in out.items()}
 
 

@@ -18,6 +18,7 @@ from nova_tpu.ops.fvec import FVec as JFVec
 from nova_tpu.ops.msm2 import DeviceBases2 as JDeviceBases2
 
 from nova_tpu_torch import interop
+from nova_tpu_torch.curves.points import xyzz_add as xyzz_add_port
 from nova_tpu_torch.curves.spec import pallas as TCURVE
 from nova_tpu_torch.fields.tfield import TField
 from nova_tpu_torch.ops import msm2, msm3
@@ -114,58 +115,134 @@ def test_digit_pipeline_bitwise():
     assert np.array_equal(ul, msm3._scalar_ulimbs(vals[:10], 16, 9, 29))
 
 
-def _grid_inputs(case, R, C):
+# K4 over 4,096 sorted cells: on the (32, 128) grid that _sortpack picks,
+# C <= 256 finishes with one suffix pass; on a (4, 1024) grid, C > 256 takes
+# the level-2 accumulate, whose (8, 128) grid is the JAX package's own. So
+# the per-bucket totals of the two packages compare bit for bit on both.
+K4_N = 4096
+K4_NB = 256
+
+
+def _rand_fe(rng, n):
+    """(n, 16) uint32 limbs of random field elements (< 2^254 < p)."""
+    limbs = rng.integers(0, 1 << 16, size=(n, 16), dtype=np.int64)
+    limbs[:, 15] &= 0x3FFF
+    return limbs.astype(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def k4_case():
+    """Signed digits with long and short runs, a few infinity bases, and
+    random field elements as coordinates (the formulas are algebraic, so
+    no add is degenerate), sorted by the port's _sortpack."""
+    n = K4_N
     rng = np.random.default_rng(4)
-    d = np.sort(rng.integers(0, 24, R * C)).astype(np.int32)
-    d[:7] = 0
-    jfx, jfy, _ = jmsm3._fixed3_host(case["jdb"], C9, 512)
-    idx = rng.permutation(R * C)
-    cm = np.arange(R * C).reshape(C, R).T  # cell (i, j) <- sorted j*R + i
-    px = np.asarray(jfx)[idx][cm]
-    py = np.asarray(jfy)[idx][cm]
-    return d[cm], px, py
+    absd = np.concatenate([rng.integers(0, 6, n - 1200), rng.integers(0, K4_NB + 1, 1200)])
+    d = (rng.permutation(absd) * rng.choice([-1, 1], n)).astype(np.int32)
+    finf = rng.random(n) < 0.01
+    tf = TField(TCURVE.base)
+    x, y = _rand_fe(rng, n), _rand_fe(rng, n)
+    yneg = msm2._negate_y(tf, torch.from_numpy(y.astype(np.int32))).numpy().astype(np.uint32)
+    zz, zzz = _rand_fe(rng, n), _rand_fe(rng, n)
+    zz[::29] = 0  # a few XYZZ identities
+    host = {"x": x, "y": y, "yneg": yneg, "zz": zz, "zzz": zzz, "d": d}
+    t = {k: torch.from_numpy(v.astype(np.int32)) for k, v in host.items()}
+    sorted_d, st = msm3._sortpack(t["d"], t["x"], t["y"], t["yneg"], torch.from_numpy(finf))
+    return {"tf": tf, "sorted_d": sorted_d, "st": st, "t": t, "host": host}
 
 
-def test_accum_plain_matches_accum_xla(case):
-    """Plain K4 == msm3._accum_xla (complete mode) bitwise, affine and XYZZ
-    input; fast mode equals complete mode on distinct bases, unflagged."""
-    R, C = 8, 64
-    d_cm, px, py = _grid_inputs(case, R, C)
-    jf, tf = JField(JCURVE.base), TField(TCURVE.base)
-    jfl, jce, _ = jmsm3._accum_xla(jf, jnp.asarray(d_cm), jnp.asarray(px), jnp.asarray(py), "complete")
-    pts = {"x": torch.from_numpy(px.astype(np.int32)), "y": torch.from_numpy(py.astype(np.int32))}
-    dg = torch.from_numpy(d_cm)
-    fl, ce, _ = msm3.accum_plain(tf, dg, pts, "complete")
-    for k in KEYS:
-        assert np.array_equal(np.asarray(jfl[k]).astype(np.int32), fl[k].numpy()), k
-        assert np.array_equal(np.asarray(jce[k]).astype(np.int32), ce[k].numpy()), k
-    # fast mode encodes inert (digit-0) runs differently, so compare it on a
-    # grid without digit 0, where it equals complete mode bit for bit
-    dg1 = dg + 1
-    fl, ce, _ = msm3.accum_plain(tf, dg1, pts, "complete")
-    ffl, fce, flag = msm3.accum_plain(tf, dg1, pts, "fast")
-    for k in KEYS:
-        assert torch.equal(fl[k], ffl[k]) and torch.equal(ce[k], fce[k]), k
+def _jax_totals(c, grid, xyzz: bool):
+    """msm3._accum_xla on the same sorted cells laid out as the JAX
+    package's column-major grids, then msm3._bucket_totals."""
+    R, C = grid
+    h = c["host"]
+    cm = np.arange(R * C).reshape(C, R).T  # grid cell (i, j) <- position j*R + i
+    rows = c["st"]["src"].numpy()[cm]
+    if xyzz:
+        coords = [h[k][rows] for k in KEYS]
+    else:
+        neg = (h["d"][rows] < 0)[..., None]
+        coords = [h["x"][rows], np.where(neg, h["yneg"][rows], h["y"][rows])]
+    jf = JField(JCURVE.base)
+    sd = jnp.asarray(c["sorted_d"].numpy())
+    d_cm = sd[jnp.asarray(cm)]
+    fl, ce, _ = jmsm3._accum_xla(jf, d_cm, *(jnp.asarray(v) for v in coords[:2]), "complete",
+                                 *(jnp.asarray(v) for v in coords[2:]))
+    tot = jmsm3._bucket_totals(jf, sd, fl, ce, d_cm, R, C, C, K4_NB, False, "complete")
+    return {k: np.asarray(v).astype(np.int32) for k, v in tot.items()}
+
+
+def _port_totals(c, grid, mode, xyzz: bool):
+    st = c["st"]
+    pts = {k: c["t"][k] for k in KEYS} if xyzz else st["pts"]
+    tail1, colend, flag = msm3.accum_plain(c["tf"], grid, c["sorted_d"], pts, mode, K4_NB,
+                                           st["src"], None if xyzz else st["signs"])
     assert not flag.any()
-    # XYZZ input (the level-2 form): doubled points, a few identities
-    dbl = jpoints.xyzz_double(jf, {
-        "x": jnp.asarray(px), "y": jnp.asarray(py),
-        "zz": jnp.broadcast_to(jnp.asarray(jf.r_limbs), px.shape),
-        "zzz": jnp.broadcast_to(jnp.asarray(jf.r_limbs), px.shape),
-    })
-    dbl = {k: np.array(v) for k, v in dbl.items()}
-    dbl["zz"][0, :5] = 0
-    jfl, jce, _ = jmsm3._accum_xla(
-        jf, jnp.asarray(d_cm), *(jnp.asarray(dbl[k]) for k in ("x", "y")),
-        "complete", jnp.asarray(dbl["zz"]), jnp.asarray(dbl["zzz"]),
-    )
-    fl, ce, _ = msm3.accum_plain(
-        tf, dg, {k: torch.from_numpy(v.astype(np.int32)) for k, v in dbl.items()},
-        "complete",
-    )
+    return msm3._bucket_totals(c["tf"], c["sorted_d"], tail1, colend, grid, K4_NB)
+
+
+def test_accum_plain_matches_accum_xla(k4_case):
+    """Plain K4 (level-1 tail table and carries) with affine input, in fast
+    and complete mode, then the suffix pass over the 128 carries: per-bucket
+    totals equal msm3._accum_xla followed by msm3._bucket_totals, bit for
+    bit (no add is degenerate, so fast equals complete, unflagged)."""
+    grid = k4_case["st"]["grid"]
+    assert grid == (32, 128)
+    want = _jax_totals(k4_case, grid, False)
+    for mode in ("fast", "complete"):
+        got = _port_totals(k4_case, grid, mode, False)
+        for k in KEYS:
+            assert np.array_equal(want[k], got[k].numpy()), (mode, k)
+
+
+def test_accum_level2_matches_bucket_totals(k4_case):
+    """XYZZ input in complete mode on a (4, 1024) grid: the level-1 tails,
+    the level-2 pass over the 1,024 carries (K4 again, XYZZ complete, its own
+    tail table) and the suffix pass over its 128 carries give per-bucket
+    totals equal to the JAX package's composition, bit for bit."""
+    grid = (4, 1024)
+    want = _jax_totals(k4_case, grid, True)
+    got = _port_totals(k4_case, grid, "complete", True)
     for k in KEYS:
-        assert np.array_equal(np.asarray(jfl[k]).astype(np.int32), fl[k].numpy()), k
-        assert np.array_equal(np.asarray(jce[k]).astype(np.int32), ce[k].numpy()), k
+        assert np.array_equal(want[k], got[k].numpy()), k
+
+
+def test_accum_tail_table_rows(k4_case):
+    """The level-1 tail table has a nonzero row exactly for the buckets
+    whose run ends inside a column, holding that run's sum of its cells'
+    points (read through the permutation, y negated for negative digits);
+    a repeated point in a run flags its column in fast mode only."""
+    c = k4_case
+    tf, sorted_d, st = c["tf"], c["sorted_d"], c["st"]
+    R, C = grid = (4, 1024)
+    tail1, _, _ = msm3.accum(tf, grid, sorted_d, st["pts"], "complete", K4_NB,
+                             st["src"], st["signs"])
+    sd = sorted_d.numpy()
+    ends = np.flatnonzero(np.append(sd[1:] != sd[:-1], True))  # last cell of each run
+    mid = [e for e in ends if e % R < R - 1 and sd[e] > 0]
+    got_rows = np.flatnonzero(tail1["zz"].numpy().any(axis=1))
+    assert got_rows.tolist() == sorted(int(sd[e]) - 1 for e in mid) and len(mid) > 10
+    # a run that starts and ends inside one column, summed here cell by cell
+    heads = np.searchsorted(sd, sd)
+    e = next(e for e in mid if heads[e] < e and heads[e] // R == e // R)
+    start = heads[e]
+    pts, src, signs = st["pts"], st["src"], st["signs"]
+    acc = None
+    for p in range(start, e + 1):
+        r = int(src[p])
+        y = pts["yneg"][r] if signs[r] < 0 else pts["y"][r]
+        one = tf.one_mont(y[None])
+        q = {"x": pts["x"][r][None], "y": y[None], "zz": one, "zzz": one}
+        acc = q if acc is None else xyzz_add_port(tf, acc, q)
+    for k in KEYS:
+        assert torch.equal(acc[k][0], tail1[k][sd[e] - 1]), k
+    # the same cell twice in that run: P + P in fast mode
+    dup = src.clone()
+    dup[start + 1] = dup[start]
+    col = start // R
+    _, _, fflag = msm3.accum(tf, grid, sorted_d, pts, "fast", K4_NB, dup, signs)
+    _, _, cflag = msm3.accum(tf, grid, sorted_d, pts, "complete", K4_NB, dup, signs)
+    assert fflag.nonzero().flatten().tolist() == [col] and not cflag.any()
 
 
 def _affine(tbl):
@@ -224,8 +301,8 @@ def test_repeated_bases_degenerate_retry(monkeypatch):
     modes = []
     real = msm3.accum
 
-    def spy(tf, d_grid, pts, mode):
-        out = real(tf, d_grid, pts, mode)
+    def spy(tf, grid, digits, pts, mode, nb, src=None, signs=None):
+        out = real(tf, grid, digits, pts, mode, nb, src, signs)
         modes.append((mode, "zz" in pts, bool(out[2].any())))
         return out
 

@@ -100,6 +100,18 @@ def test_round_masks_and_plan_match(n, nb):
     assert msm2._plan(n, nb) == jmsm2._plan(n, nb)
 
 
+@pytest.mark.parametrize("seed,n,nb", [(21, 4096, 8), (22, 4096, 600), (23, 1, 4)])
+def test_segment_rank_matches_cummax(seed, n, nb):
+    """_window_sum's ranks by binary search equal the JAX _window_sum's
+    idx - cummax(where(heads, idx, 0)) over random sorted runs."""
+    ds, want = _runs(seed, n, nb)
+    got = msm2._segment_rank(_t(ds))
+    idx = torch.arange(n)
+    heads = torch.cat([torch.ones(1, dtype=torch.bool), _t(ds)[1:] != _t(ds)[:-1]])
+    cm = idx - torch.cummax(torch.where(heads, idx, 0), dim=0).values
+    assert torch.equal(got, cm) and np.array_equal(got.numpy(), want)
+
+
 def _stage_inputs(case, n, nb, rounds, seed):
     ds, rank = _runs(seed, n, nb)
     masks = jmsm2._round_masks(jnp.asarray(ds), jnp.asarray(rank), rounds)
