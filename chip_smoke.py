@@ -25,12 +25,14 @@ result line):
    shapes (K1 at 2^20 elements of both Pallas fields, K2/K3 at 2^16 lanes
    with identity, P = Q and P = -Q lanes, K4 on the commit's sorted
    sequence (level 1: affine bases read through the sort permutation) and
-   on its column carries (level 2: XYZZ), each in fast and complete mode,
-   K5 on the real 2^15-bucket table), compared bitwise (K4: the tail
-   table, the carries and the flags);
+   on its column carries (level 2: XYZZ), each in fast and complete mode;
+   K2s, K5 and K2 on what a commit gives them: the 4,096 level-2 carries,
+   the 2^15-bucket table, the 2^15-row adds), compared bitwise (K4: the
+   tail table, the carries and the flags);
 4. timing with CUDA events (median of 5 runs after warm-up): each
-   kernel and its plain version, and the msm3m workload (sequential and
-   batch-of-4 points/s);
+   kernel and its plain version, K5 with 64, 128 and 256 pair threads a
+   block, K2 and K3 at the path's shapes (2^15 rows, one row), and the
+   msm3m workload (sequential and batch-of-4 points/s);
 5. the fold step: PublicParams.setup(Pallas, Vesta, a squaring chain of
    2^17 - 9,818 constraints) on CUDA, then RecursiveSNARK.new, 5
    prove_steps (the bump, the tape build, 3 timed replays, split by the
@@ -40,19 +42,22 @@ result line):
 6. fold-step checks: one fresh primary witness committed by msm_device2,
    msm_device3 and the host Pippenger (equal); B6 in all three modes against
    its plain version on the stage inputs of that commit (bitwise, equal
-   flags) and timed; K1-K5 against their plain versions on the inputs the
-   fold step gives them (bitwise): K1/K3 in the witness key's window
-   precompute, K2/K5 in the bucket reduction of msm_device2, K4 in the
-   commit of the running witness, K1 in the cross-term's SpMV; the
+   flags) and timed; K1-K5 and K2s against their plain versions on the
+   inputs the fold step gives them (bitwise): K1/K3 in the witness key's
+   window precompute, K5 in the bucket reduction of msm_device2 (timed at
+   its 2^13 buckets), K4, K2s and K2 in the commit of the running witness,
+   K1 in the cross-term's SpMV; the
    device cross-term commit_T_device (plain and relaxed) on the padded
    square primary shape against T computed on the host; msm_device2 timed
    at the witness size and on the msm3m key and scalars; and a
    repeated-base msm_device2 that must take the complete rerun;
 7. compression: CompressedSNARK.setup -> prove (split by the profiling
    phases) -> verify on phase 5's RecursiveSNARK, the counts reset just
-   before setup and read just after verify (K1-K3, K5 and B6 must have
+   before setup and read just after verify (K1, K5 and B6 must have
    launched, and the primary's outer sumcheck must have taken the device
-   route); a proof with zn or the primary's eval_W changed must fail; the
+   route); K5 in the prover's largest msm_device2 against its plain
+   version (bitwise); a proof with zn or the primary's eval_W changed
+   must fail; the
    outer sumcheck again on the same tables through the host native loop
    must give the same proof byte for byte; K1 in the device sumcheck's
    first round against its plain version (bitwise); the randomizer's W
@@ -61,6 +66,11 @@ result line):
    ITERS = 20) with the counts reset just before and read just after; P1
    and P2 against their plain versions (bitwise) and timed beside their
    bounds.
+
+After the phases, launches per call are checked: K3 (a key's window
+precompute only) must not launch in a commit, a replayed prove_step, an
+msm_device2 or a compression, and a commit must launch K2 twice, K5 once
+and K2s once.
 
 The last lines are the card's name and power limit, one JSON object
 {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -99,6 +109,7 @@ REPLACES = {
     "xyzz_double": "nova_tpu/fields/pallas_kernels.py:360",
     "accum": "nova_tpu/ops/msm3.py:221",
     "bucket_reduce": "nova_tpu/ops/msm2.py:666",
+    "suffix_segmented": "nova_tpu/ops/msm3.py:475",
     "stage": "nova_tpu/ops/msm2.py:432",
     "mont16_chain": "perf/ubench_field.py:141",
     "mont8_chain": "perf/ubench_field.py:208",
@@ -109,17 +120,25 @@ SOURCE = {
     "xyzz_double": "nova_tpu_torch/csrc/field_kernels.cu",
     "accum": "nova_tpu_torch/csrc/msm_kernels.cu",
     "bucket_reduce": "nova_tpu_torch/csrc/msm_kernels.cu",
+    "suffix_segmented": "nova_tpu_torch/csrc/msm_kernels.cu",
     "stage": "nova_tpu_torch/csrc/stage_kernel.cu",
     "mont16_chain": "nova_tpu_torch/csrc/ubench_kernels.cu",
     "mont8_chain": "nova_tpu_torch/csrc/ubench_kernels.cu",
 }
-# kernels the commit's main path must launch (phase 2), and the fold
-# step's (phase 5)
-COMMIT_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "accum", "bucket_reduce")
-FOLD_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "accum", "bucket_reduce", "stage")
+# kernels the commit's main path must launch (phase 2; K3 only in the key's
+# window precompute), and the fold step's (phase 5: K2 and K2s in verify's
+# msm3 commits)
+COMMIT_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "accum", "suffix_segmented",
+                  "bucket_reduce")
+FOLD_KERNELS = ("mont_mul", "xyzz_add", "accum", "suffix_segmented", "bucket_reduce",
+                "stage")
 # and compression's (phase 7: msm_device2 and the device outer sumcheck),
 # and the field microbenchmark's (phase 8)
-COMPRESS_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double", "bucket_reduce", "stage")
+COMPRESS_KERNELS = ("mont_mul", "bucket_reduce", "stage")
+# K2 launches a commit must make: the two 2^15-row adds of _bucket_totals
+COMMIT_XYZZ_ADDS = 2
+# K5 variants timed on the commit's table: pair threads per block
+K5_PAIRS = (64, 128, 256)
 UBENCH_KERNELS = ("mont16_chain", "mont8_chain")
 # phase 8 sizes: perf/ubench_field.py's defaults (N = 2^18, ITERS = 20)
 UB_LOG_N, UB_ITERS, REHEARSE_UB_LOG_N, REHEARSE_UB_ITERS = 18, 20, 10, 2
@@ -286,10 +305,12 @@ def kernel_vs_plain(torch, name: str, args) -> int:
         ref = fk.xyzz_double_limbs(o, limbs(P))
         return max_abs_err(torch, fk.xyzz_double(tf, P), dict(zip(fk.KEYS, ref)))
     if name == "bucket_reduce":
-        _, table, m = args
-        (gS, gW), (rS, rW) = (msm2.bucket_reduce_groups(tf, table, m),
-                              msm2.bucket_reduce_groups_plain(tf, table, m))
-        return max(max_abs_err(torch, gS, rS), max_abs_err(torch, gW, rW))
+        _, table = args[:2]
+        return max_abs_err(torch, msm2._bucket_reduce(tf, table),
+                           msm2.bucket_reduce_plain(tf, table))
+    if name == "suffix_segmented":
+        return max_abs_err(torch, msm3.suffix_to_buckets(*args),
+                           msm3.suffix_to_buckets_plain(*args))
     if name == "accum":
         got, ref = msm3.accum(*args), msm3.accum_plain(*args)
         return max(max_abs_err(torch, got[0], ref[0]), max_abs_err(torch, got[1], ref[1]),
@@ -389,6 +410,31 @@ def accum_bound(sorted_d, R: int, C: int, tails):
     written = int(tails["zz"].ne(0).any(-1).sum()) + C
     nbytes = live * (2 * ROW + 4) + R * C * (4 + 8) + written * 4 * ROW + 4 * C
     return bound(nbytes, MUL_OPS * 10 * repeat)
+
+
+def bucket_reduce_bound(nb: int):
+    """K5's least time, whatever implements it: the (nb, 16) table read
+    once and one row written, or the 2 (nb - 1) complete adds (14 products
+    each) that sum_i (i+1) T_i needs."""
+    return bound(4 * ROW * (nb + 1), MUL_OPS * 14 * 2 * (nb - 1))
+
+
+def suffix_bound(torch, digs, nb: int):
+    """K2s's least time on this run's inputs: the digits and carries read
+    once and the run totals written; or the complete adds the runs need
+    (one per carry whose digit repeats the next one's)."""
+    d = digs.long()
+    repeat = int((d[1:] == d[:-1]).sum())
+    runs = torch.unique_consecutive(d)
+    written = int(((runs >= 1) & (runs <= nb)).sum())
+    return bound(d.numel() * (4 + 4 * ROW) + written * 4 * ROW, MUL_OPS * 14 * repeat)
+
+
+def add_bound(P: dict, Q: dict, rows: int):
+    """K2's least time on these rows: 12 rows of 64 B moved per lane, or
+    14 products per lane whose operands are both live."""
+    live = int((P["zz"].ne(0).any(-1) & Q["zz"].ne(0).any(-1)).sum())
+    return bound(12 * ROW * rows, MUL_OPS * 14 * live)
 
 
 def launch_delta(_build, before: dict) -> dict:
@@ -546,16 +592,17 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     if err:
         raise PhaseError(f"B6 disagrees with its plain version: max |err| {err}")
 
-    # K1-K5 against their plain versions on the inputs the fold step gives
-    # them: an msm_device2 on a fresh copy of the witness key recomputes the
-    # window precompute (K3 doublings, K1 in the batched inversion) and
-    # reduces its buckets (K5, then K3 and K2); a commit of the running
-    # witness (verify's route) runs K4; the cross-term's SpMV runs K1
+    # K1, K3-K5 and K2s against their plain versions on the inputs the fold
+    # step gives them: an msm_device2 on a fresh copy of the witness key
+    # recomputes the window precompute (K3 doublings, K1 in the batched
+    # inversion) and reduces its buckets (K5); a commit of the running
+    # witness (verify's route) runs K4, K2s and K2; the cross-term's SpMV
+    # runs K1
     fresh = msm2.DeviceBases2.from_tensors(pallas, db.x, db.y, db.inf)
     before = dict(_build.LAUNCHES)
     with largest_calls({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
                         "xyzz_double": (fk, "xyzz_double"),
-                        "bucket_reduce": (msm2, "bucket_reduce_groups")}) as seen:
+                        "bucket_reduce": (msm2, "_bucket_reduce")}) as seen:
         again = msm2.msm_device2(witness, device_bases=fresh, reuse=True)
     if again != got2:
         raise PhaseError(f"msm_device2 with the precompute rebuilt: {again} != {got2}")
@@ -567,7 +614,9 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     log(f"msm_device2 launches: with the window precompute {cold}, without {warm}; "
         f"the precompute alone {precompute}")
     sf = TField(pallas.scalar)
-    with largest_calls({"accum": (msm3, "accum")}) as seen4:
+    with largest_calls({"accum": (msm3, "accum"),
+                        "suffix_segmented": (msm3, "suffix_to_buckets"),
+                        "xyzz_add/commit": (fk, "xyzz_add")}) as seen4:
         CommitmentEngine.commit(pp.ck_primary, FVec.coerce(sf, rs.r_W_primary.W, dev))
     seen.update(seen4)
 
@@ -604,6 +653,13 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     bad = {k: e for k, e in kernel_errs.items() if e}
     if bad:
         raise PhaseError(f"fold-step kernels disagree with their plain versions: {bad}")
+    # K5 on msm_device2's table (2^13 buckets at the 2^17 witness)
+    tf5, table5 = seen["bucket_reduce"][:2]
+    k5_d2 = {"buckets": int(table5["x"].shape[0]),
+             "ms": cuda_ms(torch, lambda: msm2._bucket_reduce(tf5, table5), reps),
+             "plain_ms": cuda_ms(torch, lambda: msm2.bucket_reduce_plain(tf5, table5), 1),
+             "bound": bucket_reduce_bound(table5["x"].shape[0])}
+    log("K5 on msm_device2's table: " + json.dumps(k5_d2))
 
     # msm_device2 at the witness size and on the msm3m key and scalars
     msm2_t = {}
@@ -643,6 +699,7 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
                 "bound_by": main["bound_by"]},
         "fold": fold, "stage_modes": stage_rows, "msm_device2": msm2_t,
         "fold_launches": launches, "kernel_errs": kernel_errs, "commit_T_ms": t_ms,
+        "k5_msm_device2": k5_d2,
         "msm_device2_launches": warm, "witness_precompute_launches": precompute,
         "pp": pp, "rs": rs,
     }
@@ -662,6 +719,7 @@ def compress(args, torch, dev, pp, rs) -> dict:
     from nova_tpu_torch.errors import NovaError
     from nova_tpu_torch.fields import kernels as fk
     from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.ops import msm2
     from nova_tpu_torch.ops import sumcheck as dsc
     from nova_tpu_torch.spartan.polys import MultilinearPolynomial as ML
     from nova_tpu_torch.spartan.sumcheck import SumcheckProof
@@ -728,7 +786,8 @@ def compress(args, torch, dev, pp, rs) -> dict:
         setup_s = time.perf_counter() - t0
         profiling.global_reset()
         t0 = time.perf_counter()
-        snark = CompressedSNARK.prove(pp, pk, rs)
+        with largest_calls({"bucket_reduce": (msm2, "_bucket_reduce")}) as seen_k5:
+            snark = CompressedSNARK.prove(pp, pk, rs)
         sync(torch)
         prove_s = time.perf_counter() - t0
         phases = {k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()}
@@ -801,6 +860,16 @@ def compress(args, torch, dev, pp, rs) -> dict:
     log(f"K1 in the first device round ({k1_rows}): max |kernel - plain| {k1_err}")
     if k1_err:
         raise PhaseError(f"K1 disagrees with its plain version in the outer sumcheck: {k1_err}")
+    k5_err = 0
+    if "bucket_reduce" in seen_k5:  # a rehearsal's 2^14 prover runs no msm_device2
+        k5_err = kernel_vs_plain(torch, "bucket_reduce", seen_k5["bucket_reduce"])
+        k5_rows = int(seen_k5["bucket_reduce"][1]["x"].shape[0])
+        log(f"K5 in the prover's largest msm_device2 ({k5_rows} buckets): "
+            f"max |kernel - plain| {k5_err}")
+    elif not args.rehearse:
+        raise PhaseError("the compression prover made no K5 call")
+    if k5_err:
+        raise PhaseError(f"K5 disagrees with its plain version in compression: {k5_err}")
 
     # the random instance's W commit against the native host MSM
     U, W = pair["U"], pair["W"]
@@ -811,7 +880,8 @@ def compress(args, torch, dev, pp, rs) -> dict:
     log(f"randomizer W commit ({len(W.W)} scalars) == native host MSM")
     return {"setup_s": setup_s, "prove_ms": prove_s * 1e3, "phase_ms": phases,
             "verify_ms": verify_s * 1e3, "launches": launches, "k1_err": k1_err,
-            "k1_rows": k1_rows, "outer_route": o["route"], "outer_rounds": o["rounds"],
+            "k1_rows": k1_rows, "k5_err": k5_err, "outer_route": o["route"],
+            "outer_rounds": o["rounds"],
             "outer_ms": o["ms"], "other_route_ms": other_ms}
 
 
@@ -1022,11 +1092,21 @@ def run(args) -> dict:
             acc_err = max(acc_err, e)
     log("K4 against its plain version (tail table, colend, flag): " + json.dumps(k4_rows))
     errs["accum"] = acc_err
-    totals = msm3._bucket_totals(bf, sorted_d, tail1, colend, (R, C), nb)
-    m = min(nb, msm2._GROUP)
-    gS, gW = msm2.bucket_reduce_groups(bf, totals, m)
-    rS, rW = msm2.bucket_reduce_groups_plain(bf, totals, m)
-    errs["bucket_reduce"] = max(max_abs_err(torch, gS, rS), max_abs_err(torch, gW, rW))
+    # K2s, K5 and K2 on the inputs a commit gives them: the level-2 carries
+    # (C2 = 4,096 at 2^16), the 2^15-bucket table and the 2^15-row adds of
+    # _bucket_totals
+    with largest_calls({"suffix_segmented": (msm3, "suffix_to_buckets"),
+                        "bucket_reduce": (msm3, "_bucket_reduce"),
+                        "xyzz_add": (fk, "xyzz_add")}) as seen3:
+        CommitmentEngine.commit(ck, v)
+    k2s_in, k5_in, k2_in = seen3["suffix_segmented"], seen3["bucket_reduce"], seen3["xyzz_add"]
+    errs["suffix_segmented"] = kernel_vs_plain(torch, "suffix_segmented", k2s_in)
+    errs["bucket_reduce"] = kernel_vs_plain(torch, "bucket_reduce", k5_in)
+    errs["xyzz_add"] = max(errs["xyzz_add"], kernel_vs_plain(torch, "xyzz_add", k2_in))
+    runs = torch.unique_consecutive(k2s_in[1].long())
+    log(f"commit's bucket stage: K2s over {k2s_in[1].shape[0]} carries "
+        f"({runs.numel()} runs), K5 over {k5_in[1]['x'].shape[0]} buckets, K2 on "
+        f"{k2_in[1]['x'].shape[0]} rows")
     # the degenerate-add retry on the card: 8 bases repeated, so equal
     # (base, digit) pairs meet in a column and the fast pass flags them
     rep = (ck.ck[:8] * (n // 8))[: min(n, 4096)]
@@ -1084,13 +1164,40 @@ def run(args) -> dict:
         cuda_ms(torch, lambda: msm3.accum_plain(*k4_l1), 1),
         accum_bound(sorted_d, R, C, tail1),
     )
-    logm = m.bit_length() - 1
-    adds = (nb // m) * sum(m - (1 << (r % logm)) for r in range(2 * logm))
+    table = k5_in[1]
     timed["bucket_reduce"] = (
-        cuda_ms(torch, lambda: msm2.bucket_reduce_groups(bf, totals, m), reps),
-        cuda_ms(torch, lambda: msm2.bucket_reduce_groups_plain(bf, totals, m), 1),
-        bound(4 * ROW * nb + 8 * ROW * (nb // m), MUL_OPS * 14 * adds),
+        cuda_ms(torch, lambda: msm2._bucket_reduce(bf, table), reps),
+        cuda_ms(torch, lambda: msm2.bucket_reduce_plain(bf, table), 1),
+        bucket_reduce_bound(table["x"].shape[0]),
     )
+    # K5 variants on the same table: pair threads per block
+    k5_variants = {P_: cuda_ms(torch, lambda: msm2._bucket_reduce(bf, table, P_), reps)
+                   for P_ in K5_PAIRS}
+    log(f"K5 variants (pair threads per block: ms): {k5_variants}")
+    timed["suffix_segmented"] = (
+        cuda_ms(torch, lambda: msm3.suffix_to_buckets(*k2s_in), reps),
+        cuda_ms(torch, lambda: msm3.suffix_to_buckets_plain(*k2s_in), 1),
+        suffix_bound(torch, k2s_in[1], nb),
+    )
+    # K2 and K3 at the shapes the main path launches them: K2 on the
+    # 2^15-row adds of _bucket_totals, and K2/K3 on one row (one add's and
+    # one doubling's latency); K3's precompute shape is the 2^16 rows above
+    _, kp, kq = k2_in
+    P1 = {k: t[40:41] for k, t in P.items()}
+    Q1 = {k: t[40:41] for k, t in Q.items()}
+    path_shapes = {
+        "xyzz_add": {
+            f"{kp['x'].shape[0]} rows": (cuda_ms(torch, lambda: fk.xyzz_add(bf, kp, kq), reps),
+                                         add_bound(kp, kq, kp["x"].shape[0])),
+            "1 row": (cuda_ms(torch, lambda: fk.xyzz_add(bf, P1, Q1), reps),
+                      add_bound(P1, Q1, 1)),
+        },
+        "xyzz_double": {
+            "1 row": (cuda_ms(torch, lambda: fk.xyzz_double(bf, P1), reps),
+                      bound(8 * ROW, MUL_OPS * 9)),
+        },
+    }
+    log("K2/K3 at the path's shapes (ms, (bound ms, by)): " + json.dumps(path_shapes))
 
     _build.reset_launches()
     CommitmentEngine.commit(ck, v)
@@ -1113,6 +1220,7 @@ def run(args) -> dict:
         "pipelined_pts_per_s": 4 * n / statistics.median(bat_s),
         "launches_per_msm": per_msm,
         "precompute_launches": {k: first_commit[k] - per_msm[k] for k in per_msm},
+        "k5_variants_ms": k5_variants, "path_shapes": path_shapes,
     }
     log("msm3m: " + json.dumps(msm))
     if args.profile:
@@ -1123,6 +1231,22 @@ def run(args) -> dict:
     ubench = field_ubench(args, torch, dev)
     log("compression: " + json.dumps(comp))
     log("field microbenchmark: " + json.dumps(ubench))
+    if not args.rehearse:
+        # the bucket stage's contract: no K3 per call on any path (K3 runs
+        # only in a key's window precompute), K2 twice per commit (the two
+        # 2^15-row adds of _bucket_totals), one K5 and one K2s per commit
+        per_call = {"commit": msm["launches_per_msm"],
+                    "msm_device2": fold["msm_device2_launches"],
+                    "compression": comp["launches"]}
+        for i, sl in enumerate(fold["fold"]["launches_per_replayed_step"]):
+            per_call[f"replayed prove_step {i + 1}"] = sl
+        k3 = {k: v["xyzz_double"] for k, v in per_call.items() if v["xyzz_double"]}
+        if k3:
+            raise PhaseError(f"K3 launched per call (0 expected on every path): {k3}")
+        commit = msm["launches_per_msm"]
+        want = {"xyzz_add": COMMIT_XYZZ_ADDS, "bucket_reduce": 1, "suffix_segmented": 1}
+        if any(commit[k] != v for k, v in want.items()):
+            raise PhaseError(f"launches per commit {commit}, expected {want}")
     log(f"== done: all phases passed")
 
     rows = []
@@ -1134,10 +1258,20 @@ def run(args) -> dict:
                    ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
         else:
             ms, plain_ms, (b_ms, b_by) = timed[name]
-            err = max(errs[name], fold["kernel_errs"][name],
-                      comp["k1_err"] if name == "mont_mul" else 0)
+            err = max(errs.get(name, 0), fold["kernel_errs"].get(name, 0),
+                      comp["k1_err"] if name == "mont_mul" else 0,
+                      comp["k5_err"] if name == "bucket_reduce" else 0)
             row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            if name == "bucket_reduce":
+                d2 = fold["k5_msm_device2"]
+                row["variants_ms"] = msm["k5_variants_ms"]
+                row["msm_device2"] = {"buckets": d2["buckets"], "ms": d2["ms"],
+                                      "plain_ms": d2["plain_ms"], "bound_ms": d2["bound"][0]}
+            if name in msm["path_shapes"]:
+                row["path_shape_ms"] = {
+                    shape: {"ms": t, "bound_ms": b[0], "bound_by": b[1]}
+                    for shape, (t, b) in msm["path_shapes"][name].items()}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], **row, "library_ms": None,

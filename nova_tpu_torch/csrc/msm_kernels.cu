@@ -1,5 +1,6 @@
-// K4 (segmented bucket accumulation) and K5 (weighted bucket reduction) of
-// the fixed-base MSM, nova_tpu_torch/ops/msm3.py and ops/msm2.py.
+// K4 (segmented bucket accumulation), K2s (the suffix pass of the bucket
+// totals) and K5 (weighted bucket reduction) of the fixed-base MSM,
+// nova_tpu_torch/ops/msm3.py and ops/msm2.py.
 //
 // Each launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -188,40 +189,301 @@ accum_kernel(const int32_t* __restrict__ dig, int64_t dstride,
   flag[j] = bad_any ? 1 : 0;
 }
 
-// K5 replaces nova_tpu/ops/msm2.py::_bucket_reduce_call. One block per group
-// of m buckets (m threads, one bucket each). For group g it writes
-//   S_g = sum_j T[g*m + j]        and    W_g = sum_j (j+1) * T[g*m + j]
-// by two Hillis-Steele suffix passes of complete adds: in round r lane j
-// adds lane (j + 2^r) mod m, whose ZZ reads as zero when j + 2^r >= m. S is
-// lane 0 after the first log2(m) rounds, W lane 0 after all 2*log2(m).
-// The partner exchange goes through shared memory (m * 128 B, 32 KB at
-// m = 256), one point per thread per round.
+// -- K5 and the suffix pass: points kept whole (4 x 8 words) in scratch --------
+
+// Shared memory, or global memory written by this block before a barrier.
+__device__ __forceinline__ Pt pt_get(const Pt* p) { return *p; }
+
+// Global memory written by other blocks: read through L2 (ld.global.cg), so
+// no stale L1 line is seen.
+__device__ __forceinline__ Pt pt_get_cg(const Pt* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  Pt r;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    const uint4 v = __ldcg(q + k);
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+  }
+  return r;
+}
+
+__device__ __forceinline__ Pt pt_identity_zero() {
+  Pt Z;
+  Z.x = fe_zero();
+  Z.y = fe_zero();
+  Z.zz = fe_zero();
+  Z.zzz = fe_zero();
+  return Z;
+}
+
+// One level of the bit-sum tree (see bucket_reduce_kernel). `src` holds
+// `arrays` arrays of 2n points (array 0: the node sums R, array 1 + k: the
+// partial bit-sums V_k); `dst` receives arrays + 1 arrays of n points: each
+// array's pairs added (left + right) and, as the new last array, the right
+// node sums R[2j + 1] (the level's own bit). Threads take items in turn.
+template <bool CG>
+__device__ __forceinline__ void tree_level(const Pt* src, Pt* dst, int arrays, int n,
+                                           const FieldConsts& fc) {
+  const int items = arrays * n;
+  for (int q = threadIdx.x; q < items; q += blockDim.x) {
+    const int a = q / n, j = q - a * n;
+    const Pt* s = src + (int64_t)a * 2 * n + 2 * j;
+    const Pt l = CG ? pt_get_cg(s) : pt_get(s);
+    const Pt r = CG ? pt_get_cg(s + 1) : pt_get(s + 1);
+    dst[(int64_t)a * n + j] = xyzz_add_general_first(l, r, fc);
+    if (a == 0) dst[(int64_t)arrays * n + j] = r;
+  }
+}
+
+// K5 replaces nova_tpu/ops/msm2.py::_bucket_reduce_call (:666 · :726) and
+// its combine (the second call, the log2(m) doublings and the add of
+// _bucket_reduce). It returns sum_i (i+1) T_i over an (nb, 16) XYZZ table,
+// nb = 2^n, as
+//   sum_i T_i + sum_k 2^k V_k,   V_k = sum of the T_i whose index has bit k,
+// in one launch:
+//   1. each block takes CH = 2*P consecutive buckets: thread j adds its pair
+//      (R = T_2j + T_2j+1, V_0 = T_2j+1), then log2(P) levels of a binary
+//      tree in shared memory, each adding pairs of node sums and of every
+//      partial bit-sum, and keeping the right node sums as the next bit's
+//      partials (tree_level). The block writes R and V_0..V_{c-1}
+//      (c = log2 CH) to scratch.
+//   2. the last block to finish (an atomic counter elects it) continues the
+//      same tree over the B = nb / CH block results in scratch, the high
+//      bits coming from the block index.
+//   3. it doubles V_k k times (thread k) and adds the n + 1 values
+//      [sum T, 2^0 V_0, .., 2^(n-1) V_(n-1)] in a pairwise tree of 32 slots.
+// Every add is complete (empty buckets, equal partial sums and P + -P
+// occur). The order of adds is fixed by nb alone (one global pairwise tree,
+// whatever P is), and msm2.bucket_reduce_plain repeats it.
 //
-// Bound: integer multiply-adds of the 2*log2(m)*nb complete adds; the table
-// is read once and only 2 points per group are written.
-__global__ void __launch_bounds__(256)
+// Bound on this card: not the 2(nb - 1) adds (~0.015 ms of multiply-adds
+// at nb = 2^15) but their depth. Any reduction of nb points is at least
+// log2(nb) adds deep, and a chained complete add takes ~12 us on a warp
+// that runs alone even in its straight-line form (perf/bucket_stage.py).
+// The tree keeps that depth (n levels, one add each, the partial bit-sums
+// added by other threads beside the node sums), does ~2 nb adds in all, and
+// leaves up to n - 1 doublings and 5 adds for the end. The TPU kernel and
+// the port's first K5 ran two Hillis-Steele suffix passes per group of 256
+// buckets (16 rounds of adds on every lane), a second launch and nine
+// single-row launches for the combine.
+__global__ void __launch_bounds__(256, 1)
 bucket_reduce_kernel(const int32_t* __restrict__ tx, const int32_t* __restrict__ ty,
                      const int32_t* __restrict__ tzz, const int32_t* __restrict__ tzzz,
-                     int32_t* __restrict__ sx, int32_t* __restrict__ sy,
-                     int32_t* __restrict__ szz, int32_t* __restrict__ szzz,
-                     int32_t* __restrict__ wx, int32_t* __restrict__ wy,
-                     int32_t* __restrict__ wzz, int32_t* __restrict__ wzzz, int m,
-                     int logm, FieldConsts fc) {
-  extern __shared__ Pt lanes[];
-  const int g = blockIdx.x;
-  const int j = threadIdx.x;
-  Pt P = pt_load(tx, ty, tzz, tzzz, (int64_t)g * m + j);
-  for (int r2 = 0; r2 < 2 * logm; r2++) {
-    if (r2 == logm && j == 0) pt_store(sx, sy, szz, szzz, g, P);
-    const int src = j + (1 << (r2 % logm));
-    lanes[j] = P;
-    __syncthreads();
-    Pt Q = lanes[src & (m - 1)];
-    __syncthreads();
-    if (src >= m) Q.zz = fe_zero();
-    P = xyzz_add(P, Q, fc);
+                     int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                     int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz,
+                     Pt* __restrict__ scratch, unsigned int* __restrict__ counter, int n,
+                     int logp, FieldConsts fc) {
+  extern __shared__ Pt sh[];
+  __shared__ bool last;
+  const int P = 1 << logp;        // pair threads of a block
+  const int c = logp + 1;         // bits inside a block's CH = 2P buckets
+  const int B = 1 << (n - c);     // blocks
+  const int tid = threadIdx.x;
+  Pt* buf[2] = {sh, sh + 2 * P};  // ping-pong, 2P points each
+  // 1. the pairs and log2(P) levels in shared memory
+  if (tid < P) {
+    const int64_t i = ((int64_t)blockIdx.x * P + tid) * 2;
+    const Pt l = pt_load(tx, ty, tzz, tzzz, i);
+    const Pt r = pt_load(tx, ty, tzz, tzzz, i + 1);
+    buf[0][tid] = xyzz_add_general_first(l, r, fc);
+    buf[0][P + tid] = r;
   }
-  if (j == 0) pt_store(wx, wy, wzz, wzzz, g, P);
+  __syncthreads();
+  int arrays = 2;
+  for (int lv = 1; lv <= logp; lv++) {
+    tree_level<false>(buf[(lv - 1) & 1], buf[lv & 1], arrays, P >> lv, fc);
+    arrays++;
+    __syncthreads();
+  }
+  // R, V_0..V_{c-1} of this block: arrays = 1 + c points of buf[logp & 1]
+  Pt* leaves = scratch;                       // (1 + c) arrays of B points
+  Pt* pong[2] = {scratch, scratch + (int64_t)(1 + c) * B};
+  for (int a = tid; a < arrays; a += blockDim.x)
+    leaves[(int64_t)a * B + blockIdx.x] = buf[logp & 1][a];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1u) == (unsigned)(B - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // 2. the tree over the blocks, in scratch
+  for (int lv = 1; (B >> lv) >= 1; lv++) {
+    tree_level<true>(pong[(lv - 1) & 1], pong[lv & 1], arrays, B >> lv, fc);
+    arrays++;
+    __threadfence_block();
+    __syncthreads();
+  }
+  const Pt* top = pong[(n - c) & 1];  // R, V_0..V_{n-1}: one point each
+  // 3. 2^k V_k, then the pairwise sum of 32 slots [R, 2^0 V_0, ..]
+  Pt* slot[2] = {sh, sh + 32};
+  for (int k = tid; k < 32; k += blockDim.x) {
+    Pt v = pt_identity_zero();
+    if (k == 0) {
+      v = pt_get_cg(top);
+    } else if (k <= n) {
+      v = pt_get_cg(top + k);
+      for (int d = 1; d < k; d++) v = xyzz_double(v, fc);
+    }
+    slot[0][k] = v;
+  }
+  __syncthreads();
+  int w = 32, cur = 0;
+  for (; w > 1; w >>= 1, cur ^= 1) {
+    for (int j = tid; j < w / 2; j += blockDim.x)
+      slot[cur ^ 1][j] = xyzz_add_general_first(slot[cur][2 * j], slot[cur][2 * j + 1], fc);
+    __syncthreads();
+  }
+  if (tid == 0) pt_store(ox, oy, ozz, ozzz, 0, slot[cur][0]);
+}
+
+// Latency probe for perf/bucket_stage.py (no TPU counterpart): each thread
+// chains n steps acc <- acc + Q (mode 0: xyzz_add, 1:
+// xyzz_add_general_first) or acc <- 2 acc (mode 2) on its own row, so one
+// warp alone times one step's latency and a full card the throughput.
+template <int MODE>
+__global__ void __launch_bounds__(256)
+point_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                   const int32_t* __restrict__ zz, const int32_t* __restrict__ zzz,
+                   int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                   int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz, int n, int rows,
+                   FieldConsts fc) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) % rows;
+  Pt A = pt_load(x, y, zz, zzz, i);
+  const Pt Q = pt_load(x, y, zz, zzz, (i + 1) % rows);
+  for (int k = 0; k < n; k++)
+    A = MODE == 0 ? xyzz_add(A, Q, fc)
+                  : MODE == 1 ? xyzz_add_general_first(A, Q, fc) : xyzz_double(A, fc);
+  pt_store(ox, oy, ozz, ozzz, i, A);
+}
+
+// K2s replaces the suffix pass of msm3._bucket_totals over the column-end
+// carries: nova_tpu/ops/msm3.py::_suffix_segmented (:475, 12 rounds of K2 at
+// 4,096 carries and ~16 PyTorch ops a round), then the run heads picked by
+// searchsorted and a gather. Input: m digits (each positive digit in one
+// contiguous run; 0 and -1 are inert) and their XYZZ points; output: each
+// run's total at row d - 1 of a zeroed (nb, 16) table, the convention of
+// K4's tail table. One block of SUF_T threads; thread s owns the slice
+// [s*E, s*E + E):
+//   1. each thread walks its slice backwards, acc = v[p] + acc while the
+//      digit repeats, writes the runs that lie inside the slice, and keeps
+//      its first run's partial (HC) and last run's (TC); a slice with no
+//      repeated digit copies its interior carries out without the walk;
+//   2. runs that span slices: a segmented Hillis-Steele suffix scan of HC
+//      over the slices in shared memory, where slice s links to s + 1 when
+//      it holds a single run that the next slice continues;
+//   3. the slice where a spanning run starts writes TC + the scan of the
+//      next slice (a single-run slice writes its scan value).
+// Bound: the adds the data needs (m minus the number of runs), none on the
+// main path (the commit's 4,096 level-2 carries have distinct digits), so
+// the bytes: the carries read once and the run totals written. One SM
+// moves them, 256 B a point from rows E apart, which keeps the kernel far
+// above that bound. The adds that do occur are at most E - 1 + log2(S) + 1
+// deep.
+// The order of adds is msm3.suffix_to_buckets_plain's.
+constexpr int SUF_T = 256;
+
+__device__ __forceinline__ void put_run(int d, int nb, const Pt& P, int32_t* tx,
+                                        int32_t* ty, int32_t* tzz, int32_t* tzzz) {
+  if (d >= 1 && d <= nb) pt_store(tx, ty, tzz, tzzz, d - 1, P);
+}
+
+__global__ void __launch_bounds__(SUF_T, 1)
+suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict__ vx,
+                      const int32_t* __restrict__ vy, const int32_t* __restrict__ vzz,
+                      const int32_t* __restrict__ vzzz, int m, int E,
+                      int32_t* __restrict__ tx, int32_t* __restrict__ ty,
+                      int32_t* __restrict__ tzz, int32_t* __restrict__ tzzz, int nb,
+                      FieldConsts fc) {
+  __shared__ Pt val[SUF_T];  // 32 KB
+  __shared__ unsigned char fl[SUF_T];
+  const int S = m / E;
+  const int s = threadIdx.x;
+  bool multi = false, link = false, starts = false;
+  int hd = 0, td = 0;
+  Pt TC = pt_identity_zero();
+  if (s < S) {
+    const int a = s * E, e = a + E;
+    bool repeat = false;
+    for (int p = a; p + 1 < e; p++) repeat |= dig[p] == dig[p + 1];
+    Pt acc;
+    int drun;
+    if (!repeat) {
+      // one carry per run inside the slice (the main path's case): the
+      // interior runs are copied out, and only the first and last runs can
+      // continue into a neighbour
+#pragma unroll 2
+      for (int p = a + 1; p + 1 < e; p++)
+        put_run(dig[p], nb, pt_load(vx, vy, vzz, vzzz, p), tx, ty, tzz, tzzz);
+      if (E > 1) {
+        TC = pt_load(vx, vy, vzz, vzzz, e - 1);
+        td = dig[e - 1];
+        multi = true;
+      }
+      acc = pt_load(vx, vy, vzz, vzzz, a);
+      drun = dig[a];
+    } else {
+      acc = pt_load(vx, vy, vzz, vzzz, e - 1);
+      drun = dig[e - 1];
+      for (int p = e - 2; p >= a; p--) {
+        const int d = dig[p];
+        const Pt v = pt_load(vx, vy, vzz, vzzz, p);
+        if (d == drun) {
+          acc = xyzz_add_general_first(v, acc, fc);
+          continue;
+        }
+        if (!multi) {
+          TC = acc;
+          td = drun;
+          multi = true;
+        } else {
+          put_run(drun, nb, acc, tx, ty, tzz, tzzz);
+        }
+        acc = v;
+        drun = d;
+      }
+    }
+    hd = drun;
+    if (!multi) {
+      TC = acc;
+      td = hd;
+    }
+    starts = s == 0 || dig[a - 1] != hd;
+    link = e < m && dig[e] == td;
+    if (multi && starts) put_run(hd, nb, acc, tx, ty, tzz, tzzz);
+    val[s] = acc;
+    fl[s] = (multi || !link) ? 1 : 0;
+  }
+  __syncthreads();
+  // 2. in place: each round reads its partner before the barrier, writes after
+  for (int off = 1; off < S; off <<= 1) {
+    const bool has = s + off < S;
+    Pt v, w;
+    unsigned char f = 1, g = 1;
+    if (s < S) {
+      v = val[s];
+      f = fl[s];
+      if (has && !f) w = val[s + off];
+      if (has) g = fl[s + off];
+    }
+    __syncthreads();
+    if (s < S && has) {
+      if (!f) val[s] = xyzz_add_general_first(v, w, fc);
+      fl[s] = f | g;
+    }
+    __syncthreads();
+  }
+  // 3. the runs that start in this slice and reach its end
+  if (s >= S) return;
+  if (!multi) {
+    if (starts) put_run(hd, nb, val[s], tx, ty, tzz, tzzz);
+  } else {
+    put_run(td, nb, link ? xyzz_add_general_first(TC, val[s + 1], fc) : TC, tx, ty, tzz,
+            tzzz);
+  }
 }
 
 }  // namespace
@@ -256,19 +518,58 @@ int nt_accum(int affine, int fast, const void* dig, int64_t dstride, const void*
   return (int)cudaGetLastError();
 }
 
+// scratch: 2 * (logp + 2) * (nb / (2 << logp)) points (Pt, 128 B each);
+// counter: one zeroed unsigned int.
 int nt_bucket_reduce(const void* tx, const void* ty, const void* tzz, const void* tzzz,
-                     void* sx, void* sy, void* szz, void* szzz, void* wx, void* wy,
-                     void* wzz, void* wzzz, int64_t groups, int m,
-                     const uint32_t* consts, void* stream) {
-  if (groups <= 0) return 0;
-  if (m < 2 || m > 256 || (m & (m - 1)) != 0) return (int)cudaErrorInvalidValue;
-  int logm = 0;
-  while ((1 << logm) < m) logm++;
-  bucket_reduce_kernel<<<(unsigned)groups, m, m * sizeof(Pt), (cudaStream_t)stream>>>(
-      (const int32_t*)tx, (const int32_t*)ty, (const int32_t*)tzz,
-      (const int32_t*)tzzz, (int32_t*)sx, (int32_t*)sy, (int32_t*)szz,
-      (int32_t*)szzz, (int32_t*)wx, (int32_t*)wy, (int32_t*)wzz, (int32_t*)wzzz, m,
-      logm, load_consts(consts));
+                     void* ox, void* oy, void* ozz, void* ozzz, void* scratch,
+                     void* counter, int n, int logp, const uint32_t* consts,
+                     void* stream) {
+  if (n < 1 || n > 24 || logp < 0 || logp > 8 || logp + 1 > n)
+    return (int)cudaErrorInvalidValue;
+  const int P = 1 << logp;
+  const int threads = P < 32 ? 32 : P;
+  const size_t smem = sizeof(Pt) * (size_t)(4 * P < 64 ? 64 : 4 * P);
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(bucket_reduce_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(sizeof(Pt) * 4 * 256));
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  bucket_reduce_kernel<<<1u << (n - logp - 1), threads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)tx, (const int32_t*)ty, (const int32_t*)tzz, (const int32_t*)tzzz,
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, (Pt*)scratch,
+      (unsigned int*)counter, n, logp, load_consts(consts));
+  return (int)cudaGetLastError();
+}
+
+int nt_point_chain(int mode, const void* x, const void* y, const void* zz,
+                   const void* zzz, void* ox, void* oy, void* ozz, void* ozzz, int n,
+                   int rows, int blocks, int threads, const uint32_t* consts, void* stream) {
+  if (mode < 0 || mode > 2 || rows <= 0 || blocks <= 0 || threads <= 0 || threads > 256)
+    return (int)cudaErrorInvalidValue;
+  const FieldConsts fc = load_consts(consts);
+  cudaStream_t s = (cudaStream_t)stream;
+#define NT_CHAIN_ARGS                                                                   \
+  (const int32_t*)x, (const int32_t*)y, (const int32_t*)zz, (const int32_t*)zzz,        \
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, n, rows, fc
+  if (mode == 0) point_chain_kernel<0><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
+  if (mode == 1) point_chain_kernel<1><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
+  if (mode == 2) point_chain_kernel<2><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
+#undef NT_CHAIN_ARGS
+  return (int)cudaGetLastError();
+}
+
+int nt_suffix_buckets(const void* dig, const void* vx, const void* vy, const void* vzz,
+                      const void* vzzz, int m, int E, void* tx, void* ty, void* tzz,
+                      void* tzzz, int nb, const uint32_t* consts, void* stream) {
+  if (m <= 0) return 0;
+  if (E <= 0 || m % E != 0 || m / E > SUF_T) return (int)cudaErrorInvalidValue;
+  suffix_buckets_kernel<<<1, SUF_T, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)dig, (const int32_t*)vx, (const int32_t*)vy, (const int32_t*)vzz,
+      (const int32_t*)vzzz, m, E, (int32_t*)tx, (int32_t*)ty, (int32_t*)tzz,
+      (int32_t*)tzzz, nb, load_consts(consts));
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,8 @@ weighted bucket reduction (kernel K5).
      run absorbs lane r + 2^k (``_round_masks``), with the survivors
      compacted between stages (``_compact``);
   3. the segment heads scattered into a table of 2^(c-1) buckets and the
-     weighted bucket reduction (K5).
+     weighted bucket reduction (K5, one launch: a pairwise tree of bit-sums
+     and its Horner finish inside the kernel).
 
 With a reused key (``reuse=True``) the window-shifted bases fold every
 window into ONE joint space; otherwise each window runs on its own and the
@@ -32,13 +33,14 @@ import torch
 
 from nova_tpu_torch import _build
 from nova_tpu_torch._device import on_cuda, resolve
-from nova_tpu_torch.curves.points import xyzz_add, xyzz_double
+from nova_tpu_torch.curves.points import xyzz_double
 from nova_tpu_torch.fields import kernels
 from nova_tpu_torch.fields.kernels import (
     affine_add_limbs_fast,
     check_i32,
     xyzz_add_limbs,
     xyzz_add_limbs_fast,
+    xyzz_double_limbs,
 )
 from nova_tpu_torch.fields.spec import NUM_LIMBS
 from nova_tpu_torch.fields.tfield import TField
@@ -66,81 +68,79 @@ def _from_limbs(coords) -> dict:
 # weighted bucket reduction: sum_i (i+1) * T[i]  (kernel K5)
 # ---------------------------------------------------------------------------
 
-_GROUP = 256  # buckets per K5 block (one thread each); nb <= _GROUP^2
+_PAIRS = 256  # pair threads per K5 block: a block takes 2 * _PAIRS buckets
+_SLOTS = 32  # width of K5's last pairwise sum (log2(nb) + 1 <= 32 values)
 
 
-def bucket_reduce_groups_plain(tf: TField, table: dict, m: int):
-    """Plain K5: for each group g of m rows returns S_g = sum_j T[g*m+j]
-    and W_g = sum_j (j+1) T[g*m+j] by two Hillis-Steele suffix passes
-    (partner (j + 2^r) mod m, with ZZ read as zero when j + 2^r >= m)."""
+def _pairs_add(o, X):
+    """Complete adds of neighbouring rows, (A, 2n, 16) -> (A, n, 16)."""
+    return xyzz_add_limbs(o, tuple(v[:, 0::2] for v in X), tuple(v[:, 1::2] for v in X))
+
+
+def _bit_sum_tree(o, X, levels: int):
+    """`levels` levels of K5's pairwise tree over (1, nb, 16) int64 rows X
+    (a tuple of four): returns (1 + levels, nb >> levels, 16) arrays
+    [R, V_0, .., V_(levels-1)], where R[j] sums the 2^levels rows of node j
+    and V_k[j] those of its rows whose index has bit k."""
+    for _ in range(levels):
+        S = _pairs_add(o, X)
+        X = tuple(torch.cat([s, v[:1, 1::2]]) for s, v in zip(S, X))
+    return X
+
+
+def bucket_reduce_plain(tf: TField, table: dict) -> dict:
+    """Plain K5: sum_i (i+1) T[i] over an (nb, 16) XYZZ table, nb = 2^n, as
+    sum_i T[i] + sum_k 2^k V_k with V_k the sum of the T[i] whose index has
+    bit k, in the kernel's order of adds: n levels of a pairwise tree whose
+    nodes carry their sum R and the partial bit-sums [R, V_0, .., V_(l-1)]
+    (each level adds neighbouring pairs of every array and appends the
+    right-hand node sums as V_l); then V_k doubled k times and the values
+    [R, V_0, 2 V_1, ..] plus zero rows added pairwise over _SLOTS slots.
+    Returns (1, 16) coordinates."""
     o = tf.ops(table["x"].device)
     nb = table["x"].shape[0]
-    logm = int(np.log2(m))
-    G = nb // m
-    P = tuple(v.view(G, m, NUM_LIMBS) for v in _as_limbs(table))
-    lane = torch.arange(m, device=table["x"].device)
-    S = None
-    for r2 in range(2 * logm):
-        if r2 == logm:
-            S = tuple(v[:, 0] for v in P)
-        s = 1 << (r2 % logm)
-        Q = [torch.roll(v, -s, dims=1) for v in P]
-        Q[2] = torch.where((lane >= m - s)[None, :, None], 0, Q[2])
-        P = xyzz_add_limbs(o, P, tuple(Q))
-    W = tuple(v[:, 0] for v in P)
-    return _from_limbs(S), _from_limbs(W)
+    n = nb.bit_length() - 1
+    assert nb == 1 << n and n >= 1, nb
+    X = _bit_sum_tree(o, tuple(v[None] for v in _as_limbs(table)), n)
+    V = tuple(v[1:, 0] for v in X)  # (n, 16): V_0 .. V_(n-1)
+    for d in range(1, n):
+        V = tuple(torch.cat([a, b]) for a, b in zip(
+            tuple(v[:d] for v in V), xyzz_double_limbs(o, tuple(v[d:] for v in V))))
+    pad = X[0].new_zeros((_SLOTS - n - 1, NUM_LIMBS))
+    Y = tuple(torch.cat([x[:1, 0], v, pad])[None] for x, v in zip(X, V))
+    while Y[0].shape[1] > 1:
+        Y = _pairs_add(o, Y)
+    return _from_limbs(tuple(v[0] for v in Y))
 
 
-def bucket_reduce_groups(tf: TField, table: dict, m: int):
-    """K5: per-group (S, W) of an XYZZ table of nb = G*m rows; returns two
-    dicts of (G, 16) int32 coordinates."""
-    nb = table["x"].shape[0]
-    assert 2 <= m <= _GROUP and m & (m - 1) == 0 and nb % m == 0, (nb, m)
+def _bucket_reduce(tf: TField, table: dict, pairs: int = _PAIRS) -> dict:
+    """K5: sum_i (i+1) T[i] over an (nb, 16) XYZZ table, nb a power of two,
+    as (1, 16) XYZZ coordinates, in one launch (see bucket_reduce_plain for
+    the order of adds; `pairs` threads of a block add pairs, a power of two
+    <= 256, and leaves the result unchanged)."""
     ins = [table[k] for k in KEYS]
+    nb = ins[0].shape[0]
+    n = nb.bit_length() - 1
+    assert nb == 1 << n and n >= 1, nb
+    assert pairs & (pairs - 1) == 0 and 1 <= pairs <= 256, pairs
     if not on_cuda(*ins):
-        return bucket_reduce_groups_plain(tf, table, m)
+        return bucket_reduce_plain(tf, table)
     ins = check_i32(*ins)
-    G = nb // m
-    S = {k: ins[0].new_empty((G, NUM_LIMBS)) for k in KEYS}
-    W = {k: ins[0].new_empty((G, NUM_LIMBS)) for k in KEYS}
+    P = min(pairs, nb // 2)
+    logp = P.bit_length() - 1
+    blocks = nb // (2 * P)
+    scratch = ins[0].new_empty((2 * (logp + 2) * blocks, 32))  # Pt: 32 words
+    counter = torch.zeros((1,), dtype=_I32, device=ins[0].device)
+    out = {k: ins[0].new_empty((1, NUM_LIMBS)) for k in KEYS}
     with torch.cuda.device(ins[0].device):
         err = _build.lib().nt_bucket_reduce(
-            *(t.data_ptr() for t in ins), *(S[k].data_ptr() for k in KEYS),
-            *(W[k].data_ptr() for k in KEYS), G, m, tf.consts_ptr,
+            *(t.data_ptr() for t in ins), *(out[k].data_ptr() for k in KEYS),
+            scratch.data_ptr(), counter.data_ptr(), n, logp, tf.consts_ptr,
             _build.stream_of(ins[0]),
         )
         _build.check(err, "bucket_reduce")
         _build.LAUNCHES["bucket_reduce"] += 1
-    return S, W
-
-
-def _bucket_reduce(tf: TField, table: dict) -> dict:
-    """sum_i (i+1) T[i] over (nb, 16) rows, nb a power of two: with groups
-    of m = min(nb, _GROUP) rows and i = g*m + j,
-        total = m * sum_g g*S_g + sum_g W_g.
-    sum_g g*S_g is the W output of the table T'_i = S_{i+1} and sum_g W_g
-    the S output of the W table: one more K5 call over both, then log2(m)
-    doublings (K3) and one add (K2). Returns (1, 16) XYZZ coordinates."""
-    nb = table["x"].shape[0]
-    assert nb & (nb - 1) == 0 and nb >= 2
-    m = min(nb, _GROUP)
-    G = nb // m
-    S, Wg = bucket_reduce_groups(tf, table, m)
-    if G == 1:
-        return Wg
-
-    def padded(src, shift):
-        z = src["x"].new_zeros((m - G + shift, NUM_LIMBS))
-        return {k: torch.cat([src[k][shift:], z]) for k in KEYS}
-
-    T1, T2 = padded(S, 1), padded(Wg, 0)
-    S2, W2 = bucket_reduce_groups(
-        tf, {k: torch.cat([T1[k], T2[k]]) for k in KEYS}, m
-    )
-    acc = {k: W2[k][:1] for k in KEYS}  # sum_g g*S_g
-    for _ in range(int(np.log2(m))):
-        acc = xyzz_double(tf, acc)
-    return xyzz_add(tf, acc, {k: S2[k][1:2] for k in KEYS})
+    return out
 
 
 # ---------------------------------------------------------------------------

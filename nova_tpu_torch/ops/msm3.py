@@ -17,10 +17,11 @@
      restarts at P. A run that reaches the column end is the column's
      carry.
   4. bucket totals (``_bucket_totals``): the C column-end carries
-     (non-decreasing digits) go through a suffix pass of complete adds
-     (C <= 256) or through K4 again (level 2, XYZZ input, complete adds,
-     its own tail table) and a suffix pass over the level-2 carries; each
-     bucket's total is its tail plus its carry sums.
+     (non-decreasing digits) go through the suffix pass K2s (C <= 256) or
+     through K4 again (level 2, XYZZ input, complete adds, its own tail
+     table) and K2s over the level-2 carries; K2s writes each run's total to
+     its bucket's row, and each bucket's total is its tail plus its carry
+     sums.
   5. weighted bucket reduction (msm2._bucket_reduce, kernel K5) and the
      host finish.
 
@@ -398,34 +399,115 @@ def _sortpack(d, fx, fy, fyneg, finf):
     return sorted_d, st
 
 
-def _suffix_segmented(tf: TField, digs, vals: dict):
-    """Masked Hillis-Steele suffix sums over (m, 16) XYZZ rows grouped by
-    equal digits: afterwards the FIRST row of each run holds the run total.
-    m must be a power of two (pad with digit -1)."""
+# ---------------------------------------------------------------------------
+# kernel K2s: the suffix pass of the bucket totals
+# ---------------------------------------------------------------------------
+
+_SUF_SLICES = 256  # K2s threads: each owns m / 256 consecutive carries
+
+
+def _suffix_slices(m: int) -> int:
+    assert m >= 1 and m & (m - 1) == 0, m
+    return min(m, _SUF_SLICES)
+
+
+def _run_table(tables, writes, nb: int):
+    """Write each (digit, point, mask) run total to row d - 1 (rows only
+    for 1 <= d <= nb; the rest land in a dropped sink row)."""
+    for d, pt, mask in writes:
+        rows = torch.where(mask & (d >= 1) & (d <= nb), d.long() - 1, nb)
+        for t, c in zip(tables, pt):
+            t[rows] = c
+
+
+def suffix_to_buckets_plain(tf: TField, digs, vals: dict, nb: int) -> dict:
+    """Plain K2s: the total of each run of equal digits of `digs` ((m,)
+    int32, m a power of two, each positive digit in one contiguous run; 0
+    and -1 are inert) over the XYZZ rows `vals`, at row d - 1 of an (nb, 16)
+    table, zero elsewhere. The kernel's order of adds: S = min(m, 256)
+    slices of E = m / S rows; each slice is walked backwards (acc = v[p] +
+    acc while the digit repeats), keeping its first run's partial HC and its
+    last run's TC; a segmented Hillis-Steele suffix scan of HC over the
+    slices (slice s links to s + 1 when it is one run that the next slice
+    continues) joins runs that span slices, and the slice where such a run
+    starts adds TC + the next slice's scan value."""
+    o = tf.ops(digs.device)
+    digs = digs.contiguous()
     m = digs.shape[0]
-    rounds = int(np.ceil(np.log2(max(2, m))))
-    iota = torch.arange(m, device=digs.device)
-    for r in range(rounds):
-        s = 1 << r
-        keep = iota < (m - s)
-        dsh = torch.where(keep, torch.roll(digs, -s), -2)
-        same = (keep & (dsh == digs))[:, None]
-        vsh = {k: torch.where(same, torch.roll(v, -s, dims=0), 0)
-               for k, v in vals.items()}
-        added = xyzz_add(tf, vals, vsh)
-        vals = {k: torch.where(same, added[k], vals[k]) for k in vals}
-    return vals
+    S = _suffix_slices(m)
+    E = m // S
+    D = digs.view(S, E)
+    V = tuple(v.view(S, E, NUM_LIMBS) for v in _as_limbs(vals))
+    tables = [torch.zeros((nb + 1, NUM_LIMBS), dtype=_I64, device=digs.device)
+              for _ in KEYS]
+    writes = []
+    acc = tuple(v[:, E - 1] for v in V)
+    drun = D[:, E - 1]
+    multi = torch.zeros((S,), dtype=torch.bool, device=digs.device)
+    TC, td = acc, drun
+    for p in range(E - 2, -1, -1):
+        d = D[:, p]
+        vp = tuple(v[:, p] for v in V)
+        same = d == drun
+        first = ~same & ~multi
+        TC = tuple(torch.where(first[:, None], a, t) for a, t in zip(acc, TC))
+        td = torch.where(first, drun, td)
+        writes.append((drun, acc, ~same & multi))  # a run inside the slice
+        multi = multi | ~same
+        added = xyzz_add_limbs(o, vp, acc)
+        acc = tuple(torch.where(same[:, None], a, v) for a, v in zip(added, vp))
+        drun = d
+    hd = drun
+    TC = tuple(torch.where(multi[:, None], t, a) for t, a in zip(TC, acc))
+    td = torch.where(multi, td, hd)
+    prev = torch.cat([digs.new_full((1,), -2), digs[E - 1 : m - 1 : E]])
+    starts = prev != hd
+    nxt = torch.cat([digs[E::E], digs.new_full((1,), -2)])
+    link = (nxt == td) & (torch.arange(S, device=digs.device) < S - 1)
+    writes.append((hd, acc, multi & starts))  # a first run inside the slice
+    # segmented suffix scan over the slices
+    val, f = acc, multi | ~link
+    off = 1
+    while off < S:
+        has = torch.arange(S, device=digs.device) + off < S
+        w = tuple(torch.cat([v[off:], v[:off] * 0]) for v in val)
+        g = torch.cat([f[off:], f.new_ones((off,))])
+        added = xyzz_add_limbs(o, val, w)
+        val = tuple(torch.where((has & ~f)[:, None], a, v) for a, v in zip(added, val))
+        f = f | (g & has)
+        off *= 2
+    writes.append((hd, val, ~multi & starts))  # a run that starts in a one-run slice
+    nval = tuple(torch.cat([v[1:], v[:1] * 0]) for v in val)
+    joined = xyzz_add_limbs(o, TC, nval)
+    last = tuple(torch.where(link[:, None], j, t) for j, t in zip(joined, TC))
+    writes.append((td, last, multi))  # the last run of a slice of several
+    _run_table(tables, writes, nb)
+    return {k: t[:nb].to(_I32) for k, t in zip(KEYS, tables)}
 
 
-def _run_heads(dend, bs):
-    """(head position, present) of each digit of `bs` in sorted `dend`."""
-    lh = torch.searchsorted(dend, bs)
-    has = torch.searchsorted(dend, bs, right=True) > lh
-    return torch.where(has, lh, 0), has
-
-
-def _take(vals: dict, idx, mask) -> dict:
-    return {k: torch.where(mask[:, None], v[idx], 0) for k, v in vals.items()}
+def suffix_to_buckets(tf: TField, digs, vals: dict, nb: int) -> dict:
+    """K2s: the run totals of `vals` grouped by the digits `digs`, at row
+    d - 1 of a zeroed (nb, 16) table, in one launch; see
+    suffix_to_buckets_plain for the contract."""
+    ins = [vals[k] for k in KEYS]
+    if not on_cuda(digs, *ins):
+        return suffix_to_buckets_plain(tf, digs, vals, nb)
+    m = int(digs.shape[0])
+    E = m // _suffix_slices(m)
+    if digs.dtype != _I32:
+        raise ValueError("digits: int32")
+    digs = digs.contiguous()
+    ins = check_i32(*ins)
+    table = ins[0].new_zeros((4, nb, NUM_LIMBS))
+    with torch.cuda.device(digs.device):
+        err = _build.lib().nt_suffix_buckets(
+            digs.data_ptr(), *(t.data_ptr() for t in ins), m, E,
+            *(table[i].data_ptr() for i in range(4)), nb, tf.consts_ptr,
+            _build.stream_of(digs),
+        )
+        _build.check(err, "suffix_segmented")
+        _build.LAUNCHES["suffix_segmented"] += 1
+    return dict(zip(KEYS, table))
 
 
 def _column_ends(seq, R: int):
@@ -437,27 +519,23 @@ def _column_ends(seq, R: int):
 def _bucket_totals(tf: TField, sorted_d, tail1: dict, colend: dict, grid, nb: int):
     """Per-bucket totals (dict of (nb, 16) XYZZ rows) from K4's level-1 tail
     table and column-end carries, fixing up runs that span columns: the C
-    carries (non-decreasing digits) go through a suffix pass of complete
-    adds (C <= 256), or through K4 again (level 2: XYZZ input, complete
-    adds, its own tail table) and a suffix pass over the level-2 carries."""
+    carries (non-decreasing digits) go through the suffix pass K2s (C <=
+    256), or through K4 again (level 2: XYZZ input, complete adds, its own
+    tail table) and K2s over the level-2 carries; each bucket's total is its
+    tail plus its carry sums."""
     R, C = grid
-    dev = sorted_d.device
-    bs = torch.arange(1, nb + 1, dtype=sorted_d.dtype, device=dev)
-    dend = _column_ends(sorted_d, R)  # (C,) non-decreasing
     if C <= 256:  # C is a power of two: one suffix pass finishes it
-        dend = dend.contiguous()
-        sums = _suffix_segmented(tf, dend, colend)
-        return xyzz_add(tf, tail1, _take(sums, *_run_heads(dend, bs)))
+        sums = suffix_to_buckets(tf, _column_ends(sorted_d, R), colend, nb)
+        return xyzz_add(tf, tail1, sums)
 
     # level 2: the C carries on an (R2, C2) grid through K4 (complete adds)
     C2 = max(128, C // _R2)
     R2 = C // C2
-    tail2, colend2, _ = accum(tf, (R2, C2), dend, colend, "complete", nb)
-    # level 3: suffix pass over the C2 level-2 carries
-    dend2 = _column_ends(sorted_d, R * R2).contiguous()
-    sums3 = _suffix_segmented(tf, dend2, colend2)
-    acc = xyzz_add(tf, tail1, tail2)
-    return xyzz_add(tf, acc, _take(sums3, *_run_heads(dend2, bs)))
+    tail2, colend2, _ = accum(tf, (R2, C2), _column_ends(sorted_d, R), colend,
+                              "complete", nb)
+    # level 3: the suffix pass over the C2 level-2 carries
+    sums3 = suffix_to_buckets(tf, _column_ends(sorted_d, R * R2), colend2, nb)
+    return xyzz_add(tf, xyzz_add(tf, tail1, tail2), sums3)
 
 
 def _msm3_dispatch(bf: TField, sorted_d, st, c: int):
@@ -506,7 +584,7 @@ def _windowed(db: DeviceBases2, c: int, n_pad: int, W: int):
 
 
 def _effective_window(window: int, t) -> int:
-    """The window to use: 2..17 (K5 reduces at most 256^2 buckets); on CPU
+    """The window to use: 2..17 (at most 2^16 buckets); on CPU
     tensors (the plain versions) capped at 9, as the reference's XLA path
     does, since wide windows make the bucket table huge."""
     if not 2 <= window <= 17:
