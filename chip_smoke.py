@@ -27,11 +27,13 @@ result line):
    sequence (level 1: affine bases read through the sort permutation) and
    on its column carries (level 2: XYZZ), each in fast and complete mode;
    K2s, K5 and K2 on what a commit gives them: the 4,096 level-2 carries,
-   the 2^15-bucket table, the 2^15-row adds), compared bitwise (K4: the
-   tail table, the carries and the flags);
+   the 2^15-bucket table, the 2^15-row adds; K2s also on the commit's
+   32,768 level-1 carries, whose digits repeat, and on a 4,096-carry column
+   with runs across its slices and 0 / -1 padding), compared bitwise (K4:
+   the tail table, the carries and the flags);
 4. timing with CUDA events (median of 5 runs after warm-up): each
-   kernel and its plain version, K5 with 64, 128 and 256 pair threads a
-   block, K2 and K3 at the path's shapes (2^15 rows, one row), and the
+   kernel and its plain version, K2 and K3 at the path's shapes (2^15
+   rows, one row), and the
    msm3m workload (sequential and batch-of-4 points/s);
 5. the fold step: PublicParams.setup(Pallas, Vesta, a squaring chain of
    2^17 - 9,818 constraints) on CUDA, then RecursiveSNARK.new, 5
@@ -137,8 +139,6 @@ FOLD_KERNELS = ("mont_mul", "xyzz_add", "accum", "suffix_segmented", "bucket_red
 COMPRESS_KERNELS = ("mont_mul", "bucket_reduce", "stage")
 # K2 launches a commit must make: the two 2^15-row adds of _bucket_totals
 COMMIT_XYZZ_ADDS = 2
-# K5 variants timed on the commit's table: pair threads per block
-K5_PAIRS = (64, 128, 256)
 UBENCH_KERNELS = ("mont16_chain", "mont8_chain")
 # phase 8 sizes: perf/ubench_field.py's defaults (N = 2^18, ITERS = 20)
 UB_LOG_N, UB_ITERS, REHEARSE_UB_LOG_N, REHEARSE_UB_ITERS = 18, 20, 10, 2
@@ -1107,6 +1107,26 @@ def run(args) -> dict:
     log(f"commit's bucket stage: K2s over {k2s_in[1].shape[0]} carries "
         f"({runs.numel()} runs), K5 over {k5_in[1]['x'].shape[0]} buckets, K2 on "
         f"{k2_in[1]['x'].shape[0]} rows")
+    # K2s where digits repeat, so its backward walks, the segmented scan
+    # over the slices and the joins all add: the commit's level-1 column
+    # ends and carries, and a column of 4,096 of those carries whose digits
+    # have runs of every length (one across a third of the slices) between
+    # digit-0 rows and -1 padding
+    m = min(4096, colend["x"].shape[0])
+    d = np.sort(rng.integers(1, nb + 1, m))
+    d[m // 5 : m // 5 + m // 3] = d[m // 5]
+    d = np.sort(d)
+    d[: m // 8] = 0
+    d[m - m // 8 :] = -1
+    spanning = (bf, torch.from_numpy(d.astype(np.int32)).to(dev),
+                {k: t[:m] for k, t in colend.items()}, nb)
+    for label, a in (("level-1 carries", (bf, msm3._column_ends(sorted_d, R), colend, nb)),
+                     ("spanning runs", spanning)):
+        e = kernel_vs_plain(torch, "suffix_segmented", a)
+        digs = a[1].long()
+        log(f"K2s on {label}: {digs.shape[0]} carries, "
+            f"{torch.unique_consecutive(digs).numel()} runs, max |kernel - plain| {e}")
+        errs["suffix_segmented"] = max(errs["suffix_segmented"], e)
     # the degenerate-add retry on the card: 8 bases repeated, so equal
     # (base, digit) pairs meet in a column and the fast pass flags them
     rep = (ck.ck[:8] * (n // 8))[: min(n, 4096)]
@@ -1170,10 +1190,6 @@ def run(args) -> dict:
         cuda_ms(torch, lambda: msm2.bucket_reduce_plain(bf, table), 1),
         bucket_reduce_bound(table["x"].shape[0]),
     )
-    # K5 variants on the same table: pair threads per block
-    k5_variants = {P_: cuda_ms(torch, lambda: msm2._bucket_reduce(bf, table, P_), reps)
-                   for P_ in K5_PAIRS}
-    log(f"K5 variants (pair threads per block: ms): {k5_variants}")
     timed["suffix_segmented"] = (
         cuda_ms(torch, lambda: msm3.suffix_to_buckets(*k2s_in), reps),
         cuda_ms(torch, lambda: msm3.suffix_to_buckets_plain(*k2s_in), 1),
@@ -1220,7 +1236,7 @@ def run(args) -> dict:
         "pipelined_pts_per_s": 4 * n / statistics.median(bat_s),
         "launches_per_msm": per_msm,
         "precompute_launches": {k: first_commit[k] - per_msm[k] for k in per_msm},
-        "k5_variants_ms": k5_variants, "path_shapes": path_shapes,
+        "path_shapes": path_shapes,
     }
     log("msm3m: " + json.dumps(msm))
     if args.profile:
@@ -1265,7 +1281,6 @@ def run(args) -> dict:
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
             if name == "bucket_reduce":
                 d2 = fold["k5_msm_device2"]
-                row["variants_ms"] = msm["k5_variants_ms"]
                 row["msm_device2"] = {"buckets": d2["buckets"], "ms": d2["ms"],
                                       "plain_ms": d2["plain_ms"], "bound_ms": d2["bound"][0]}
             if name in msm["path_shapes"]:

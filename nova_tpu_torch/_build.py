@@ -46,7 +46,6 @@ LAUNCHES = {
     "stage": 0,
     "mont16_chain": 0,
     "mont8_chain": 0,
-    "point_chain": 0,
 }
 
 # filled by build(): {"dir", "seconds", "built"} of the library in use
@@ -64,10 +63,10 @@ _SIGNATURES = {
                 + [_i32, _i32, _vp, _vp],
     "nt_bucket_reduce": [_vp] * 10 + [_i32, _i32, _vp, _vp],
     "nt_suffix_buckets": [_vp] * 5 + [_i32, _i32] + [_vp] * 4 + [_i32, _vp, _vp],
-    "nt_point_chain": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp, _vp],
     "nt_stage": [_i32, _i32] + [_vp] * 11 + [_i64, _i32, _vp, _vp],
     "nt_mont16_chain": [_vp, _vp, _vp, _i64, _i32, _vp],
     "nt_mont8_chain": [_vp, _vp, _vp, _i64, _i32, _vp],
+    "nt_chain_probe": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp, _vp],
 }
 
 

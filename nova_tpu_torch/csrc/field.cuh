@@ -248,37 +248,15 @@ __device__ __forceinline__ Pt xyzz_add_general(const Pt& P, const Pt& Q, const F
   return R;
 }
 
-// _xyzz_add_limbs: complete XYZZ + XYZZ (identity, P = Q, P = -Q).
+// _xyzz_add_limbs: complete XYZZ + XYZZ (identity, P = Q, P = -Q). The
+// general formula runs first as straight-line code and the identity and
+// P = +-Q cases are selected after it, so a chain of adds has no branch
+// before its products: a chained add takes 12.7-12.9 us on a warp that runs
+// alone against 19.3-20.4 us when the cases branch first, and the card
+// completes 1,854 adds/us against 1,370-1,447 (nova_tpu_torch/perf/
+// bucket_stage.py on NVIDIA H100 80GB HBM3, 700.00 W). An identity operand
+// costs the general formula's work all the same.
 __device__ __forceinline__ Pt xyzz_add(const Pt& P, const Pt& Q, const FieldConsts& fc) {
-  if (fe_is_zero(P.zz)) return Q;
-  if (fe_is_zero(Q.zz)) return P;
-  const Fe u1 = fe_mul(P.x, Q.zz, fc);
-  const Fe u2 = fe_mul(Q.x, P.zz, fc);
-  const Fe s1 = fe_mul(P.y, Q.zzz, fc);
-  const Fe s2 = fe_mul(Q.y, P.zzz, fc);
-  const Fe pd = fe_sub(u2, u1, fc);
-  const Fe r = fe_sub(s2, s1, fc);
-  if (fe_is_zero(pd)) {
-    if (fe_is_zero(r)) return xyzz_dbl_raw(P, fc);
-    Pt Z;
-    Z.x = fe_one(fc);
-    Z.y = fe_one(fc);
-    Z.zz = fe_zero();
-    Z.zzz = fe_zero();
-    return Z;
-  }
-  return xyzz_add_general(P, Q, u1, s1, pd, r, fc);
-}
-
-// The same complete add with the general formula evaluated first, as
-// straight-line code, and the identity and P = +-Q cases selected after
-// it: identical outputs and ~0.6x the latency of xyzz_add on a warp that
-// runs alone (12.3 us against 19.5-20.8 us a chained add,
-// nova_tpu_torch/perf/bucket_stage.py on NVIDIA H100 80GB HBM3, 700.00 W),
-// at the cost of the general formula's work where an operand is the
-// identity. For the reductions whose depth bounds them (K5, K2s).
-__device__ __forceinline__ Pt xyzz_add_general_first(const Pt& P, const Pt& Q,
-                                                     const FieldConsts& fc) {
   const bool pz = fe_is_zero(P.zz), qz = fe_is_zero(Q.zz);
   const Fe u1 = fe_mul(P.x, Q.zz, fc);
   const Fe u2 = fe_mul(Q.x, P.zz, fc);

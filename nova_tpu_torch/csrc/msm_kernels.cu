@@ -234,7 +234,7 @@ __device__ __forceinline__ void tree_level(const Pt* src, Pt* dst, int arrays, i
     const Pt* s = src + (int64_t)a * 2 * n + 2 * j;
     const Pt l = CG ? pt_get_cg(s) : pt_get(s);
     const Pt r = CG ? pt_get_cg(s + 1) : pt_get(s + 1);
-    dst[(int64_t)a * n + j] = xyzz_add_general_first(l, r, fc);
+    dst[(int64_t)a * n + j] = xyzz_add(l, r, fc);
     if (a == 0) dst[(int64_t)arrays * n + j] = r;
   }
 }
@@ -262,8 +262,8 @@ __device__ __forceinline__ void tree_level(const Pt* src, Pt* dst, int arrays, i
 //
 // Bound on this card: not the 2(nb - 1) adds (~0.015 ms of multiply-adds
 // at nb = 2^15) but their depth. Any reduction of nb points is at least
-// log2(nb) adds deep, and a chained complete add takes ~12 us on a warp
-// that runs alone even in its straight-line form (perf/bucket_stage.py).
+// log2(nb) adds deep, and a chained complete add takes ~12.7 us on a warp
+// that runs alone (perf/bucket_stage.py).
 // The tree keeps that depth (n levels, one add each, the partial bit-sums
 // added by other threads beside the node sums), does ~2 nb adds in all, and
 // leaves up to n - 1 doublings and 5 adds for the end. The TPU kernel and
@@ -289,7 +289,7 @@ bucket_reduce_kernel(const int32_t* __restrict__ tx, const int32_t* __restrict__
     const int64_t i = ((int64_t)blockIdx.x * P + tid) * 2;
     const Pt l = pt_load(tx, ty, tzz, tzzz, i);
     const Pt r = pt_load(tx, ty, tzz, tzzz, i + 1);
-    buf[0][tid] = xyzz_add_general_first(l, r, fc);
+    buf[0][tid] = xyzz_add(l, r, fc);
     buf[0][P + tid] = r;
   }
   __syncthreads();
@@ -334,30 +334,10 @@ bucket_reduce_kernel(const int32_t* __restrict__ tx, const int32_t* __restrict__
   int w = 32, cur = 0;
   for (; w > 1; w >>= 1, cur ^= 1) {
     for (int j = tid; j < w / 2; j += blockDim.x)
-      slot[cur ^ 1][j] = xyzz_add_general_first(slot[cur][2 * j], slot[cur][2 * j + 1], fc);
+      slot[cur ^ 1][j] = xyzz_add(slot[cur][2 * j], slot[cur][2 * j + 1], fc);
     __syncthreads();
   }
   if (tid == 0) pt_store(ox, oy, ozz, ozzz, 0, slot[cur][0]);
-}
-
-// Latency probe for perf/bucket_stage.py (no TPU counterpart): each thread
-// chains n steps acc <- acc + Q (mode 0: xyzz_add, 1:
-// xyzz_add_general_first) or acc <- 2 acc (mode 2) on its own row, so one
-// warp alone times one step's latency and a full card the throughput.
-template <int MODE>
-__global__ void __launch_bounds__(256)
-point_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                   const int32_t* __restrict__ zz, const int32_t* __restrict__ zzz,
-                   int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                   int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz, int n, int rows,
-                   FieldConsts fc) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) % rows;
-  Pt A = pt_load(x, y, zz, zzz, i);
-  const Pt Q = pt_load(x, y, zz, zzz, (i + 1) % rows);
-  for (int k = 0; k < n; k++)
-    A = MODE == 0 ? xyzz_add(A, Q, fc)
-                  : MODE == 1 ? xyzz_add_general_first(A, Q, fc) : xyzz_double(A, fc);
-  pt_store(ox, oy, ozz, ozzz, i, A);
 }
 
 // K2s replaces the suffix pass of msm3._bucket_totals over the column-end
@@ -432,7 +412,7 @@ suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict
         const int d = dig[p];
         const Pt v = pt_load(vx, vy, vzz, vzzz, p);
         if (d == drun) {
-          acc = xyzz_add_general_first(v, acc, fc);
+          acc = xyzz_add(v, acc, fc);
           continue;
         }
         if (!multi) {
@@ -471,7 +451,7 @@ suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict
     }
     __syncthreads();
     if (s < S && has) {
-      if (!f) val[s] = xyzz_add_general_first(v, w, fc);
+      if (!f) val[s] = xyzz_add(v, w, fc);
       fl[s] = f | g;
     }
     __syncthreads();
@@ -481,7 +461,7 @@ suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict
   if (!multi) {
     if (starts) put_run(hd, nb, val[s], tx, ty, tzz, tzzz);
   } else {
-    put_run(td, nb, link ? xyzz_add_general_first(TC, val[s + 1], fc) : TC, tx, ty, tzz,
+    put_run(td, nb, link ? xyzz_add(TC, val[s + 1], fc) : TC, tx, ty, tzz,
             tzzz);
   }
 }
@@ -541,23 +521,6 @@ int nt_bucket_reduce(const void* tx, const void* ty, const void* tzz, const void
       (const int32_t*)tx, (const int32_t*)ty, (const int32_t*)tzz, (const int32_t*)tzzz,
       (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, (Pt*)scratch,
       (unsigned int*)counter, n, logp, load_consts(consts));
-  return (int)cudaGetLastError();
-}
-
-int nt_point_chain(int mode, const void* x, const void* y, const void* zz,
-                   const void* zzz, void* ox, void* oy, void* ozz, void* ozzz, int n,
-                   int rows, int blocks, int threads, const uint32_t* consts, void* stream) {
-  if (mode < 0 || mode > 2 || rows <= 0 || blocks <= 0 || threads <= 0 || threads > 256)
-    return (int)cudaErrorInvalidValue;
-  const FieldConsts fc = load_consts(consts);
-  cudaStream_t s = (cudaStream_t)stream;
-#define NT_CHAIN_ARGS                                                                   \
-  (const int32_t*)x, (const int32_t*)y, (const int32_t*)zz, (const int32_t*)zzz,        \
-      (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, n, rows, fc
-  if (mode == 0) point_chain_kernel<0><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
-  if (mode == 1) point_chain_kernel<1><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
-  if (mode == 2) point_chain_kernel<2><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
-#undef NT_CHAIN_ARGS
   return (int)cudaGetLastError();
 }
 

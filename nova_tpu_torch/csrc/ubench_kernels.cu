@@ -18,11 +18,19 @@
 // each limb row with neighbouring threads on neighbouring columns, and
 // writes A once at the end.
 //
+// Also the point-add latency probe of nova_tpu_torch/perf/bucket_stage.py
+// (no TPU counterpart, on no path of the program): each thread chains n
+// complete adds acc <- acc + Q (mode 0, field.cuh's xyzz_add) or n
+// doublings (mode 1) on its own row, so one warp alone times one step's
+// latency and a full card the throughput.
+//
 // Each entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "field.cuh"
 
 namespace {
 
@@ -138,6 +146,20 @@ mont8_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ 
   for (int i = 0; i < 32; ++i) o[i * n + col] = A[i];
 }
 
+template <int MODE>
+__global__ void __launch_bounds__(256)
+point_chain_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                   const int32_t* __restrict__ zz, const int32_t* __restrict__ zzz,
+                   int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                   int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz, int n, int rows,
+                   nt::FieldConsts fc) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) % rows;
+  nt::Pt A = nt::pt_load(x, y, zz, zzz, i);
+  const nt::Pt Q = nt::pt_load(x, y, zz, zzz, (i + 1) % rows);
+  for (int k = 0; k < n; k++) A = MODE == 0 ? nt::xyzz_add(A, Q, fc) : nt::xyzz_double(A, fc);
+  nt::pt_store(ox, oy, ozz, ozzz, i, A);
+}
+
 }  // namespace
 
 extern "C" {
@@ -155,6 +177,22 @@ int nt_mont8_chain(const void* a, const void* b, void* out, int64_t n, int iters
   if (n <= 0) return 0;
   mont8_chain_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, iters);
+  return (int)cudaGetLastError();
+}
+
+int nt_chain_probe(int mode, const void* x, const void* y, const void* zz,
+                   const void* zzz, void* ox, void* oy, void* ozz, void* ozzz, int n,
+                   int rows, int blocks, int threads, const uint32_t* consts, void* stream) {
+  if (mode < 0 || mode > 1 || rows <= 0 || blocks <= 0 || threads <= 0 || threads > 256)
+    return (int)cudaErrorInvalidValue;
+  const nt::FieldConsts fc = nt::load_consts(consts);
+  cudaStream_t s = (cudaStream_t)stream;
+#define NT_CHAIN_ARGS                                                                   \
+  (const int32_t*)x, (const int32_t*)y, (const int32_t*)zz, (const int32_t*)zzz,        \
+      (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz, (int32_t*)ozzz, n, rows, fc
+  if (mode == 0) point_chain_kernel<0><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
+  if (mode == 1) point_chain_kernel<1><<<blocks, threads, 0, s>>>(NT_CHAIN_ARGS);
+#undef NT_CHAIN_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -113,20 +113,18 @@ def bucket_reduce_plain(tf: TField, table: dict) -> dict:
     return _from_limbs(tuple(v[0] for v in Y))
 
 
-def _bucket_reduce(tf: TField, table: dict, pairs: int = _PAIRS) -> dict:
+def _bucket_reduce(tf: TField, table: dict) -> dict:
     """K5: sum_i (i+1) T[i] over an (nb, 16) XYZZ table, nb a power of two,
     as (1, 16) XYZZ coordinates, in one launch (see bucket_reduce_plain for
-    the order of adds; `pairs` threads of a block add pairs, a power of two
-    <= 256, and leaves the result unchanged)."""
+    the order of adds)."""
     ins = [table[k] for k in KEYS]
     nb = ins[0].shape[0]
     n = nb.bit_length() - 1
     assert nb == 1 << n and n >= 1, nb
-    assert pairs & (pairs - 1) == 0 and 1 <= pairs <= 256, pairs
     if not on_cuda(*ins):
         return bucket_reduce_plain(tf, table)
     ins = check_i32(*ins)
-    P = min(pairs, nb // 2)
+    P = min(_PAIRS, nb // 2)
     logp = P.bit_length() - 1
     blocks = nb // (2 * P)
     scratch = ins[0].new_empty((2 * (logp + 2) * blocks, 32))  # Pt: 32 words

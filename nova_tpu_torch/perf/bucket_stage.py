@@ -2,20 +2,24 @@
 weighted bucket reduction (``msm2._bucket_reduce``) at 2^15 buckets (a
 2^16 commit) and 2^13 (``msm_device2`` at a 2^17 witness), the suffix pass
 of the bucket totals over 4,096 column-end carries (the commit's level 3),
-the device-busy time of a 2^16 commit under ``torch.profiler``, and the
-latency of one complete add (``xyzz_add``, ``xyzz_add_general_first``) and
+the device-busy time of a 2^16 commit under ``torch.profiler``, the kernels
+that run the complete add on a commit's own inputs (K2 on the 2^15-row adds
+of ``_bucket_totals``, K4 in complete mode on the level-1 sequence and the
+level-2 carries, B6 in complete mode on the first two stages of a 2^16
+``msm_device2``), and the latency of one complete add (``xyzz_add``) and
 one doubling: a chain of them on one warp, and the card's rate with 256
-threads on each SM (the latency probe in ``csrc/msm_kernels.cu``).
+threads on each SM (the probe ``nt_chain_probe`` in
+``csrc/ubench_kernels.cu``).
 
     python3 nova_tpu_torch/perf/bucket_stage.py [--root DIR] [--label NAME]
         [--key-cache DIR] [--out FILE]
 
 ``--root`` (default: this checkout) imports ``nova_tpu_torch`` from another
-checkout of the repository, so two versions can be timed on one card.
-Each function is timed twice: CUDA events around the call (host enqueue
-included) and its device-busy time under ``torch.profiler`` (every kernel,
-fill and copy it launches, with the largest by name). Where that version
-has no one-launch suffix pass
+checkout of the repository, so two versions can be timed on one card; the
+probe runs only where that version has it. Each function is timed twice:
+CUDA events around the call (host enqueue included) and its device-busy
+time under ``torch.profiler`` (every kernel, fill and copy it launches, with
+the largest by name). Where that version has no one-launch suffix pass
 (``msm3.suffix_to_buckets``), its Hillis-Steele rounds
 (``msm3._suffix_segmented``) and the run-head gather (``msm3._take``) are
 timed instead: the same function. ``--key-cache`` shares one derived 2^16
@@ -86,7 +90,7 @@ def _busy_ms(torch, fn, reps: int = 5):
 
 
 CHAIN_STEPS = 16
-CHAIN_MODES = ("xyzz_add", "xyzz_add_general_first", "xyzz_double")
+CHAIN_MODES = ("xyzz_add", "xyzz_double")
 
 
 def _chain(torch, np, rng, tf, _build):
@@ -100,15 +104,66 @@ def _chain(torch, np, rng, tf, _build):
     for mode, name in enumerate(CHAIN_MODES):
         for blocks, threads, label in ((1, 32, "one_warp_us"), (132, 256, "card_per_us")):
             def run():
-                err = _build.lib().nt_point_chain(
+                err = _build.lib().nt_chain_probe(
                     mode, *(t.data_ptr() for t in pts), *(t.data_ptr() for t in outs),
                     CHAIN_STEPS, rows, blocks, threads, tf.consts_ptr,
                     _build.stream_of(pts[0]))
-                _build.check(err, "point_chain")
-                _build.LAUNCHES["point_chain"] += 1
+                _build.check(err, "chain_probe")
             us = _ms(torch, run) * 1e3
             res.setdefault(name, {})[label] = (
                 us / CHAIN_STEPS if blocks == 1 else blocks * threads * CHAIN_STEPS / us)
+    return res
+
+
+def _calls(targets: dict):
+    """Install recorders on {name: (module, attribute)}; returns the list of
+    each name's call arguments and a function that removes them."""
+    seen, saved = {name: [] for name in targets}, []
+    for name, (mod, attr) in targets.items():
+        real = getattr(mod, attr)
+        saved.append((mod, attr, real))
+
+        def wrapper(*a, _name=name, _real=real, **k):
+            seen[_name].append((a, k))
+            return _real(*a, **k)
+
+        setattr(mod, attr, wrapper)
+
+    def restore():
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return seen, restore
+
+
+def _complete_adds(torch, fk, msm2, msm3, commit, witness_msm) -> dict:
+    """Device-busy ms of the kernels that run the complete add, on the
+    inputs a commit and an msm_device2 give them: K2 on the largest adds of
+    _bucket_totals, K4 in complete mode on level 1 (the commit's fast pass
+    rerun) and level 2, B6 in complete mode on the first two stages."""
+    seen, restore = _calls({"add": (fk, "xyzz_add"), "accum": (msm3, "accum")})
+    try:
+        commit()
+    finally:
+        restore()
+    rows = max(a[1]["x"].shape[0] for a, _ in seen["add"])
+    res = {"k2_add_rows": int(rows), "k2_add": []}
+    for (tf, P, Q), _ in seen["add"]:
+        if P["x"].shape[0] == rows:
+            res["k2_add"].append(_busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q)))
+    for level, (a, _) in zip(("l1", "l2"), seen["accum"]):
+        args = a[:4] + ("complete",) + a[5:]
+        res[f"k4_complete_{level}"] = _busy_ms(torch, lambda: msm3.accum(*args))
+    seen, restore = _calls({"stage": (msm2, "stage")})
+    try:
+        witness_msm()
+    finally:
+        restore()
+    for label, (a, k) in zip(("first", "later"), seen["stage"]):
+        tf, rounds, masks, pts = a[:4]
+        live = k.get("live")
+        res[f"b6_complete_{label}"] = _busy_ms(
+            torch, lambda: msm2.stage(tf, rounds, masks, pts, "complete", live))
+        res[f"b6_complete_{label}"]["lanes"] = int(masks.shape[1])
     return res
 
 
@@ -129,6 +184,7 @@ def main(argv=None) -> int:
     import nova_tpu_torch
     from nova_tpu_torch import _build
     from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.fields import kernels as fk
     from nova_tpu_torch.fields.tfield import TField
     from nova_tpu_torch.ops import msm2, msm3
     from nova_tpu_torch.ops.fvec import FVec
@@ -145,7 +201,7 @@ def main(argv=None) -> int:
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                stdout=subprocess.PIPE, text=True).stdout.strip()}
-    if hasattr(_build.lib(), "nt_point_chain"):
+    if hasattr(_build.lib(), "nt_chain_probe"):
         res["chain"] = _chain(torch, np, rng, tf, _build)
     for nb in (1 << 15, 1 << 13):
         table = {k: _rand_rows(torch, np, rng, nb) for k in keys}
@@ -185,6 +241,11 @@ def main(argv=None) -> int:
     for _ in range(REPS):
         pedersen.CommitmentEngine.commit(ck, v)
     res["commit_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
+    db = ck.device_bases2(N_COMMIT)
+    msm2.msm_device2(scal, device_bases=db, reuse=True)  # the window precompute
+    res["complete_add"] = _complete_adds(
+        torch, fk, msm2, msm3, lambda: pedersen.CommitmentEngine.commit(ck, v),
+        lambda: msm2.msm_device2(scal, device_bases=db, reuse=True))
     line = json.dumps(res)
     print(line)
     if args.out:
