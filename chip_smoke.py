@@ -201,6 +201,17 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Device-busy ms a call of fn under torch.profiler (every kernel, fill
+    and copy it launches), after one warm-up; the host clock in a
+    --rehearse run, which has no card."""
+    if not torch.cuda.is_available():
+        return cuda_ms(torch, fn, reps)
+    from nova_tpu_torch.perf.bucket_stage import _busy_ms
+
+    return _busy_ms(torch, fn, reps)["busy_ms"]
+
+
 def bound(nbytes: float, ops: float):
     t_b = nbytes / BYTES_PER_S * 1e3
     t_o = ops / INT32_OPS_PER_S * 1e3
@@ -938,7 +949,7 @@ def run(args) -> dict:
         raise PhaseError(f"nova_tpu_torch is not importable: {exc}")
     from nova_tpu_torch.curves.spec import pallas
     from nova_tpu_torch.fields import kernels as fk
-    from nova_tpu_torch.fields.spec import pallas_base, pallas_scalar
+    from nova_tpu_torch.fields.spec import ALL_FIELDS, pallas_base, pallas_scalar
     from nova_tpu_torch.fields.tfield import TField
     from nova_tpu_torch.ops import msm2, msm3
     from nova_tpu_torch.ops.fvec import FVec
@@ -1026,20 +1037,28 @@ def run(args) -> dict:
     bf = TField(pallas_base)
     sf = TField(pallas_scalar)
     errs, timed = {}, {}
+    # K1 in every field of fields/spec.py on 2^20 rows of full 16-bit limbs
+    # (most operands of the 254- and 255-bit fields lie in [p, 2^256)), with
+    # edge values on both sides and a one-row operand on either side (a
+    # constant, read once a block)
     m16 = rng.integers(0, 1 << 16, size=(1 << 20, 2, 16), dtype=np.int64)
-    m16[:, :, 15] &= 0x3FFF  # < 2^254 < p for both Pallas fields
     worst = 0
-    for tf in (bf, sf):
+    for fname, spec_f in sorted(ALL_FIELDS.items()):
+        tf = TField(spec_f)
+        p = spec_f.p
         a = torch.from_numpy(m16[:, 0].astype(np.int32)).to(dev)
         b = torch.from_numpy(m16[:, 1].astype(np.int32)).to(dev)
-        edge = torch.from_numpy(tf.pack([0, 1, tf.spec.p - 1, tf.spec.p - 2])).to(dev)
-        a[:4] = edge
-        b[4:8] = edge
-        got = fk.mont_mul(tf, a, b)
-        ref = tf.ops(dev).mul(a.long(), b.long())
-        worst = max(worst, int((got.long() - ref).abs().max().item()))
+        edge = torch.from_numpy(tf.pack([0, 1, p - 1, p - 2, p, p + 1, (1 << 256) - 1,
+                                         (1 << 256) - 2, spec_f.r])).to(dev)
+        a[: len(edge)] = edge
+        b[16 : 16 + len(edge)] = edge
+        top = edge[6]  # 2^256 - 1
+        for x, y in ((a, b), (a, top), (top, b), (tf.const_mont(12345, b), b)):
+            got = fk.mont_mul(tf, x, y)
+            ref = tf.ops(dev).mul(x.long(), y.long()).expand(got.shape)
+            worst = max(worst, int((got.long() - ref).abs().max().item()))
     errs["mont_mul"] = worst
-    k1_in = (a, b)
+    k1_in = (tf, a, b)  # the secp scalar field's, the last in the loop
 
     db = ck.device_bases2(n)
     n_pad = max(512, 1 << (n - 1).bit_length())
@@ -1063,6 +1082,20 @@ def run(args) -> dict:
     ref = fk.xyzz_add_limbs(o, tuple(P[k].long() for k in fk.KEYS),
                             tuple(Q[k].long() for k in fk.KEYS))
     errs["xyzz_add"] = max_abs_err(torch, got, dict(zip(fk.KEYS, ref)))
+    # K2 on random rows (field elements below 2^254, not curve points), a
+    # third of each side's lanes the identity and some lanes both
+    rnd = rng.integers(0, 1 << 16, size=(8, L, 16), dtype=np.int64)
+    rnd[..., 15] &= 0x3FFF
+    rnd = torch.from_numpy(rnd.astype(np.int32)).to(dev)
+    RP, RQ = dict(zip(fk.KEYS, rnd[:4])), dict(zip(fk.KEYS, rnd[4:]))
+    lane = torch.arange(L, device=dev)
+    for side, r in ((RP, 0), (RQ, 1)):
+        for k in ("zz", "zzz"):
+            side[k][(lane % 3 == r) | (lane % 7 == 0)] = 0
+    ref = fk.xyzz_add_limbs(o, tuple(RP[k].long() for k in fk.KEYS),
+                            tuple(RQ[k].long() for k in fk.KEYS))
+    errs["xyzz_add"] = max(errs["xyzz_add"],
+                           max_abs_err(torch, fk.xyzz_add(bf, RP, RQ), dict(zip(fk.KEYS, ref))))
     D = {k: t.clone() for k, t in Q.items()}
     got = fk.xyzz_double(bf, D)
     ref = fk.xyzz_double_limbs(o, tuple(D[k].long() for k in fk.KEYS))
@@ -1151,13 +1184,28 @@ def run(args) -> dict:
 
     # -- phase 4: timing ----------------------------------------------------
     log(f"== phase 4: timing (median of {reps})")
-    a, b = k1_in
+    tf1, a, b = k1_in
     mont_n = a.shape[0]
     timed["mont_mul"] = (
-        cuda_ms(torch, lambda: fk.mont_mul(sf, a, b), reps),
-        cuda_ms(torch, lambda: sf.ops(dev).mul(a.long(), b.long()), max(1, reps // 2)),
+        cuda_ms(torch, lambda: fk.mont_mul(tf1, a, b), reps),
+        cuda_ms(torch, lambda: tf1.ops(dev).mul(a.long(), b.long()), max(1, reps // 2)),
         bound(3 * ROW * mont_n, MUL_OPS * mont_n),
     )
+    # K1's device time (torch.profiler: every kernel a call launches, so a
+    # copy of a broadcast operand would count) at its callers' shapes, and
+    # the latency of one chained product, add and doubling (the probe)
+    from nova_tpu_torch.perf import bucket_stage
+
+    k1_shapes = {}
+    shapes = bucket_stage.k1_shapes(torch, np, rng, sf, dev, 8 if args.rehearse else 0)
+    for label, (x, y, nbytes) in shapes.items():
+        rows_k1 = torch.broadcast_shapes(x.shape, y.shape).numel() // 16
+        k1_shapes[label] = (device_ms(torch, lambda: fk.mont_mul(sf, x, y), reps),
+                            bound(nbytes, MUL_OPS * rows_k1))
+    chain = {} if args.rehearse else bucket_stage._chain(torch, np, rng, bf, _build,
+                                                         _build.lib())
+    log("K1 at its callers' shapes (device ms, (bound ms, by)): " + json.dumps(k1_shapes))
+    log("chained steps on one warp (us) and on the card (per us): " + json.dumps(chain))
     pz = P["zz"].eq(0).all(-1)
     qz = Q["zz"].eq(0).all(-1)
     both = (~pz & ~qz)
@@ -1202,9 +1250,13 @@ def run(args) -> dict:
     P1 = {k: t[40:41] for k, t in P.items()}
     Q1 = {k: t[40:41] for k, t in Q.items()}
     path_shapes = {
+        "mont_mul": k1_shapes,
         "xyzz_add": {
             f"{kp['x'].shape[0]} rows": (cuda_ms(torch, lambda: fk.xyzz_add(bf, kp, kq), reps),
                                          add_bound(kp, kq, kp["x"].shape[0])),
+            f"{kp['x'].shape[0]} rows, device ms": (
+                device_ms(torch, lambda: fk.xyzz_add(bf, kp, kq), reps),
+                add_bound(kp, kq, kp["x"].shape[0])),
             "1 row": (cuda_ms(torch, lambda: fk.xyzz_add(bf, P1, Q1), reps),
                       add_bound(P1, Q1, 1)),
         },
@@ -1213,7 +1265,8 @@ def run(args) -> dict:
                       bound(8 * ROW, MUL_OPS * 9)),
         },
     }
-    log("K2/K3 at the path's shapes (ms, (bound ms, by)): " + json.dumps(path_shapes))
+    log("K2/K3 at the path's shapes (ms, (bound ms, by)): " + json.dumps(
+        {k: v for k, v in path_shapes.items() if k != "mont_mul"}))
 
     _build.reset_launches()
     CommitmentEngine.commit(ck, v)
@@ -1236,7 +1289,7 @@ def run(args) -> dict:
         "pipelined_pts_per_s": 4 * n / statistics.median(bat_s),
         "launches_per_msm": per_msm,
         "precompute_launches": {k: first_commit[k] - per_msm[k] for k in per_msm},
-        "path_shapes": path_shapes,
+        "path_shapes": path_shapes, "chain": chain,
     }
     log("msm3m: " + json.dumps(msm))
     if args.profile:
@@ -1283,6 +1336,8 @@ def run(args) -> dict:
                 d2 = fold["k5_msm_device2"]
                 row["msm_device2"] = {"buckets": d2["buckets"], "ms": d2["ms"],
                                       "plain_ms": d2["plain_ms"], "bound_ms": d2["bound"][0]}
+            if name == "mont_mul":
+                row["chain"] = msm["chain"]
             if name in msm["path_shapes"]:
                 row["path_shape_ms"] = {
                     shape: {"ms": t, "bound_ms": b[0], "bound_by": b[1]}

@@ -56,7 +56,7 @@ _lock = threading.Lock()
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    "nt_mont_mul": [_vp, _vp, _vp, _i64, _vp, _vp],
+    "nt_mont_mul": [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp],
     "nt_xyzz_add": [_vp] * 12 + [_i64, _vp, _vp],
     "nt_xyzz_double": [_vp] * 8 + [_i64, _vp, _vp],
     "nt_accum": [_i32, _i32, _vp, _i64] + [_vp] * 10 + [_i32] + [_vp] * 5

@@ -11,26 +11,64 @@ using namespace nt;
 namespace {
 
 // K1 replaces nova_tpu/fields/pallas_kernels.py::_mont_mul_2d (a*b*R^-1 mod p
-// on 16-bit limbs). Bound on this card: bytes. A product is ~272 32-bit
+// on 16-bit limbs). Bound on this card: bytes. A product is 264 32-bit
 // multiply-adds against 192 B moved (two 64 B operands in, 64 B out, in the
-// 16-bit-limb layout), below the ~5 int32 operations per byte at which the
-// H100 turns compute-bound. The design reads each operand once with 16 B
-// vector loads, keeps the product in registers, and repacks limbs into
-// 32-bit words so the arithmetic stays well under the memory time.
+// 16-bit-limb layout), or 128 B where one operand is a single row, below
+// the ~5 int32 operations per byte at which the H100 turns compute-bound.
+// The design reads each operand once with 16 B vector loads, keeps the
+// product (field.cuh's carry-chain fe_mul) in registers, and repacks limbs
+// into 32-bit words. An operand that is one row for every element (a
+// constant: from_mont's 1, an axpy's or a sumcheck bind's scalar) is
+// flagged by the wrapper and read once a block into shared memory, so no
+// copy of it is ever written. Device time against the bound at the path's
+// shapes is in PERF.md section 6 (nova_tpu_torch/perf/bucket_stage.py).
 __global__ void __launch_bounds__(256)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                int32_t* __restrict__ out, int64_t n, FieldConsts fc) {
+                int32_t* __restrict__ out, int64_t n, int a_one, int b_one,
+                FieldConsts fc) {
+  __shared__ Fe row[2];
+  if (threadIdx.x == 0 && a_one) row[0] = fe_load(a);
+  if (threadIdx.x == 1 && b_one) row[1] = fe_load(b);
+  __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  fe_store(out + i * NL, fe_mul(fe_load(a + i * NL), fe_load(b + i * NL), fc));
+  const Fe x = a_one ? row[0] : fe_load(a + i * NL);
+  const Fe y = b_one ? row[1] : fe_load(b + i * NL);
+  fe_store(out + i * NL, fe_mul(x, y, fc));
 }
 
 // K2 replaces pallas_kernels.py::_xyzz_add_call (complete XYZZ add). Bound:
-// near the balance point (14 products, ~3800 multiply-adds, against 768 B
-// moved), so every intermediate stays in registers, each coordinate is read
-// and written once, and only the selected branch of the masked formula is
-// evaluated.
-__global__ void __launch_bounds__(128)
+// near the balance point (14 products, 3,696 multiply-adds, against 768 B
+// moved), and where an operand is the identity the add is a copy. So a
+// block first settles its lanes with an identity operand (P = 0 gives Q,
+// Q = 0 gives P: plain 16 B copies of the surviving rows), then compacts
+// the lanes whose operands are both live into a list (a warp ballot and a
+// prefix count, as B6 does) and runs the complete formula, with its
+// doubling and P = -Q cases, only on that list: thread t takes entry t,
+// and warps past the list's end finish after the copies. The values
+// selected are those of xyzz_add_limbs, so outputs are bit-identical.
+constexpr int ADD_T = 128;
+constexpr int ADD_WARPS = ADD_T / 32;
+
+__device__ __forceinline__ bool row_is_zero(const int32_t* __restrict__ src) {
+  const int4* s = reinterpret_cast<const int4*>(src);
+  int acc = 0;
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    const int4 v = s[q];
+    acc |= v.x | v.y | v.z | v.w;
+  }
+  return acc == 0;
+}
+
+__device__ __forceinline__ void row_copy(int32_t* __restrict__ dst,
+                                         const int32_t* __restrict__ src) {
+#pragma unroll
+  for (int q = 0; q < 4; q++)
+    reinterpret_cast<int4*>(dst)[q] = reinterpret_cast<const int4*>(src)[q];
+}
+
+__global__ void __launch_bounds__(ADD_T)
 xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                 const int32_t* __restrict__ pzz, const int32_t* __restrict__ pzzz,
                 const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
@@ -38,11 +76,42 @@ xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                 int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                 int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz, int64_t n,
                 FieldConsts fc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Pt P = pt_load(px, py, pzz, pzzz, i);
-  const Pt Q = pt_load(qx, qy, qzz, qzzz, i);
-  pt_store(ox, oy, ozz, ozzz, i, xyzz_add(P, Q, fc));
+  __shared__ int list[ADD_T];
+  __shared__ int warp_count[ADD_WARPS];
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const int64_t base = (int64_t)blockIdx.x * ADD_T;
+  const int64_t i = base + t;
+  bool live = false;
+  if (i < n) {
+    const int64_t r = i * NL;
+    const bool pz = row_is_zero(pzz + r);
+    const bool qz = row_is_zero(qzz + r);
+    live = !pz && !qz;
+    if (!live) {  // the identity case of xyzz_add_limbs: P = 0 gives Q
+      const bool q = pz;
+      row_copy(ox + r, (q ? qx : px) + r);
+      row_copy(oy + r, (q ? qy : py) + r);
+      row_copy(ozz + r, (q ? qzz : pzz) + r);
+      row_copy(ozzz + r, (q ? qzzz : pzzz) + r);
+    }
+  }
+  const unsigned bal = __ballot_sync(0xFFFFFFFFu, live);
+  if (wl == 0) warp_count[warp] = __popc(bal);
+  __syncthreads();
+  int before = 0, count = 0;
+#pragma unroll
+  for (int w = 0; w < ADD_WARPS; w++) {
+    const int c = warp_count[w];
+    if (w < warp) before += c;
+    count += c;
+  }
+  if (live) list[before + __popc(bal & ((1u << wl) - 1u))] = t;
+  __syncthreads();
+  if (t >= count) return;
+  const int64_t j = base + list[t];
+  const Pt P = pt_load(px, py, pzz, pzzz, j);
+  const Pt Q = pt_load(qx, qy, qzz, qzzz, j);
+  pt_store(ox, oy, ozz, ozzz, j, xyzz_add(P, Q, fc));
 }
 
 // K3 replaces pallas_kernels.py::_xyzz_double_call (dbl-2008-s-1, a = 0).
@@ -71,11 +140,13 @@ const char* nt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int nt_mont_mul(const void* a, const void* b, void* out, int64_t n,
-                const uint32_t* consts, void* stream) {
+// a_one / b_one: the operand is one row, the same for every element
+int nt_mont_mul(const void* a, const void* b, void* out, int64_t n, int a_one,
+                int b_one, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
   mont_mul_kernel<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, n, load_consts(consts));
+      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, n, a_one, b_one,
+      load_consts(consts));
   return (int)cudaGetLastError();
 }
 
@@ -84,7 +155,7 @@ int nt_xyzz_add(const void* px, const void* py, const void* pzz, const void* pzz
                 void* ox, void* oy, void* ozz, void* ozzz, int64_t n,
                 const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  xyzz_add_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+  xyzz_add_kernel<<<blocks_for(n, ADD_T), ADD_T, 0, (cudaStream_t)stream>>>(
       (const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz,
       (const int32_t*)pzzz, (const int32_t*)qx, (const int32_t*)qy,
       (const int32_t*)qzz, (const int32_t*)qzzz, (int32_t*)ox, (int32_t*)oy,

@@ -295,24 +295,39 @@ def _rows(t, shape):
     return check_i32(t.expand(shape).reshape(-1, NUM_LIMBS))[0]
 
 
+def one_row(t, shape):
+    """The single (16,) row of `t` when `t` broadcast to `shape` repeats one
+    row for every element (a constant, or a view expanded from one), else
+    None."""
+    e = t.expand(shape)
+    if any(st and sz > 1 for st, sz in zip(e.stride()[:-1], e.shape[:-1])):
+        return None
+    return check_i32(e[(0,) * (e.dim() - 1)])[0]
+
+
 def mont_mul(tf, a, b):
-    """K1: Montgomery product a*b*R^-1 mod p of (..., 16) int32 limbs."""
+    """K1: Montgomery product a*b*R^-1 mod p of (..., 16) int32 limbs. An
+    operand that is one row for every element is passed as that row, and
+    the kernel reads it once a block."""
     shape = torch.broadcast_shapes(a.shape, b.shape)
     if not on_cuda(a, b):
         o = tf.ops(a.device)
         return o.mul(a.long(), b.long()).expand(shape).to(torch.int32)
-    a2, b2 = _rows(a, shape), _rows(b, shape)
-    out = torch.empty_like(a2)
-    n = a2.shape[0]
-    if n:
-        with torch.cuda.device(out.device):
-            err = _build.lib().nt_mont_mul(
-                a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n,
-                tf.consts_ptr, _build.stream_of(out),
-            )
-            _build.check(err, "mont_mul")
-            _build.LAUNCHES["mont_mul"] += 1
-    return out.view(shape)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    n = out.numel() // NUM_LIMBS
+    if not n:
+        return out
+    rows = [one_row(t, shape) for t in (a, b)]
+    ins = [r if r is not None else _rows(t, shape) for r, t in zip(rows, (a, b))]
+    with torch.cuda.device(out.device):
+        err = _build.lib().nt_mont_mul(
+            ins[0].data_ptr(), ins[1].data_ptr(), out.data_ptr(), n,
+            int(rows[0] is not None), int(rows[1] is not None), tf.consts_ptr,
+            _build.stream_of(out),
+        )
+        _build.check(err, "mont_mul")
+        _build.LAUNCHES["mont_mul"] += 1
+    return out
 
 
 def xyzz_add(tf, p: dict, q: dict) -> dict:

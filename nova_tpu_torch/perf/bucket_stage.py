@@ -1,4 +1,11 @@
-"""Time the fixed-base MSM's bucket stage after K4 on one GPU: the whole
+"""Time the field product, K1 and K2, and the fixed-base MSM's bucket stage
+after K4 on one GPU. First the Montgomery product (``fe_mul``): a chain of
+products on one warp and the card's rate (probe mode 2), K1's device time
+at the shapes its callers give it (the 2^20-row check, the commit's
+``from_mont`` of its 2^16 scalars, the fold step's ``FVec.axpy`` at 2^17,
+the SpMV product over 2^17 nonzeros, the device outer sumcheck's round
+products and its bind at 2^17), each against its plain version, and every
+kernel's registers and spills (``ptxas.log``). Then the whole
 weighted bucket reduction (``msm2._bucket_reduce``) at 2^15 buckets (a
 2^16 commit) and 2^13 (``msm_device2`` at a 2^17 witness), the suffix pass
 of the bucket totals over 4,096 column-end carries (the commit's level 3),
@@ -15,8 +22,11 @@ threads on each SM (the probe ``nt_chain_probe`` in
         [--key-cache DIR] [--out FILE]
 
 ``--root`` (default: this checkout) imports ``nova_tpu_torch`` from another
-checkout of the repository, so two versions can be timed on one card; the
-probe runs only where that version has it. Each function is timed twice:
+checkout of the repository, so two versions can be timed on one card. The
+probe is this checkout's ``csrc/ubench_kernels.cu`` built with nvcc against
+the ``field.cuh`` of ``--root`` (into this checkout's ``_build/``), so both
+versions run the same probe around their own product. K2's row reports
+the share of the commit's add lanes whose operands are both live. Each function is timed twice:
 CUDA events around the call (host enqueue included) and its device-busy
 time under ``torch.profiler`` (every kernel, fill and copy it launches, with
 the largest by name). Where that version has no one-launch suffix pass
@@ -89,29 +99,127 @@ def _busy_ms(torch, fn, reps: int = 5):
             "top": [[ms, calls, key] for ms, calls, key in rows[:6]]}
 
 
-CHAIN_STEPS = 16
-CHAIN_MODES = ("xyzz_add", "xyzz_double")
+# probe modes and the chain length each is timed at
+CHAIN_MODES = (("xyzz_add", 16), ("xyzz_double", 16), ("fe_mul", 256))
+_HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _chain(torch, np, rng, tf, _build):
-    """us per step of a chained add or doubling on one warp, and steps per
-    us on 132 blocks of 256 threads; random field elements, so every add
-    takes the general path."""
+def _probe_lib(root: str, _build):
+    """This checkout's csrc/ubench_kernels.cu built against the field.cuh of
+    the checkout at `root`, loaded with ctypes (built once per pair)."""
+    import ctypes
+    import hashlib
+    import shutil
+
+    src = os.path.join(_HERE, "..", "csrc", "ubench_kernels.cu")
+    hdr = os.path.join(root, "nova_tpu_torch", "csrc", "field.cuh")
+    h = hashlib.sha256()
+    for f in (src, hdr):
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    out = os.path.join(_HERE, "..", "_build", "probe-" + h.hexdigest()[:16])
+    so = os.path.join(out, "libprobe.so")
+    if not os.path.exists(so):
+        os.makedirs(out, exist_ok=True)
+        shutil.copy(src, out)
+        shutil.copy(hdr, out)
+        subprocess.run(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC", "-shared",
+             os.path.join(out, "ubench_kernels.cu"), "-o", so], check=True)
+    lib = ctypes.CDLL(so)
+    lib.nt_chain_probe.argtypes = _build._SIGNATURES["nt_chain_probe"]
+    lib.nt_chain_probe.restype = ctypes.c_int
+    return lib
+
+
+def _chain(torch, np, rng, tf, _build, lib):
+    """us per step of a chained add, doubling or product on one warp, and
+    steps per us on 132 blocks of 256 threads; random field elements, so
+    every add takes the general path."""
     rows = 132 * 256
     pts = [_rand_rows(torch, np, rng, rows) for _ in range(4)]
     outs = [torch.empty_like(pts[0]) for _ in range(4)]
     res = {}
-    for mode, name in enumerate(CHAIN_MODES):
+    for mode, (name, steps) in enumerate(CHAIN_MODES):
         for blocks, threads, label in ((1, 32, "one_warp_us"), (132, 256, "card_per_us")):
             def run():
-                err = _build.lib().nt_chain_probe(
+                err = lib.nt_chain_probe(
                     mode, *(t.data_ptr() for t in pts), *(t.data_ptr() for t in outs),
-                    CHAIN_STEPS, rows, blocks, threads, tf.consts_ptr,
-                    _build.stream_of(pts[0]))
+                    steps, rows, blocks, threads, tf.consts_ptr, _build.stream_of(pts[0]))
                 _build.check(err, "chain_probe")
             us = _ms(torch, run) * 1e3
             res.setdefault(name, {})[label] = (
-                us / CHAIN_STEPS if blocks == 1 else blocks * threads * CHAIN_STEPS / us)
+                us / steps if blocks == 1 else blocks * threads * steps / us)
+    return res
+
+
+def _ptxas(_build) -> dict:
+    """{kernel: [registers, spill store bytes, spill load bytes]} from the
+    ptxas.log of the library in use (nvcc -Xptxas -v), names demangled by
+    c++filt where it exists."""
+    import re
+
+    with open(os.path.join(_build.build_info["dir"], "ptxas.log")) as fh:
+        raw = fh.read()
+    try:
+        raw = subprocess.run(["c++filt"], input=raw, text=True,
+                             stdout=subprocess.PIPE).stdout or raw
+    except OSError:
+        pass
+    out, cur = {}, None
+    for line in raw.splitlines():
+        if "Function properties for" in line:
+            cur = line.split("Function properties for", 1)[1].strip()
+            cur = cur.replace("(anonymous namespace)::", "").split("(")[0]
+            out[cur] = [None, 0, 0]
+        elif cur and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        elif cur and "Used" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+            cur = None
+    return out
+
+
+def k1_shapes(torch, np, rng, tf, device="cuda", shift: int = 0):
+    """K1's operands at the shapes its callers give it on the main path
+    (random rows below p; `shift` divides every size by 2^shift for a CPU
+    rehearsal): {label: (a, b, bytes)} where bytes counts each input row
+    read once (a one-row constant once) and each output row written
+    once."""
+    def rows(*shape):
+        v = rng.integers(0, 1 << 16, size=shape + (16,), dtype=np.int64)
+        v[..., 15] &= 0x3FFF
+        return torch.from_numpy(v.astype(np.int32)).to(device)
+
+    def full(n, *, one=False):
+        return 64 * n * (2 if one else 3) + (64 if one else 0)
+
+    n16, n17, n20 = (1 << 16) >> shift, (1 << 17) >> shift, (1 << 20) >> shift
+    m16, v17, lo = rows(n16), rows(n17), rows(4, n16)
+    one = tf._const((1,) + (0,) * 15, m16.device)
+    return {
+        "check 2^20": (rows(n20), rows(n20), full(n20)),
+        "commit from_mont 2^16": (m16, one, full(n16, one=True)),
+        "fold axpy 2^17": (tf.const_mont(12345, v17), v17, full(n17, one=True)),
+        "spmv 2^17 nonzeros": (rows(n17), rows(n17), full(n17)),
+        "sumcheck round 3 x 2^16": (rows(3, n16), rows(3, n16), full(3 * n16)),
+        "sumcheck bind 4 x 2^16": (tf.const_mont(54321, lo), lo, full(4 * n16, one=True)),
+    }
+
+
+def _k1(torch, np, rng, fk, tf) -> dict:
+    """K1 at each path shape: device-busy ms (every kernel the call
+    launches, so a copy of a broadcast operand shows), max |kernel - plain|,
+    the bytes of its bound."""
+    res = {}
+    o = tf.ops("cuda")
+    for label, (a, b, nbytes) in k1_shapes(torch, np, rng, tf).items():
+        got = fk.mont_mul(tf, a, b)
+        err = int((got.long() - o.mul(a.long(), b.long())).abs().max().item())
+        res[label] = {"rows": list(got.shape[:-1]), "bytes": nbytes, "max_abs_err": err,
+                      **_busy_ms(torch, lambda: fk.mont_mul(tf, a, b))}
     return res
 
 
@@ -149,7 +257,16 @@ def _complete_adds(torch, fk, msm2, msm3, commit, witness_msm) -> dict:
     res = {"k2_add_rows": int(rows), "k2_add": []}
     for (tf, P, Q), _ in seen["add"]:
         if P["x"].shape[0] == rows:
-            res["k2_add"].append(_busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q)))
+            o = tf.ops("cuda")
+            ref = fk.xyzz_add_limbs(o, tuple(P[k].long() for k in fk.KEYS),
+                                    tuple(Q[k].long() for k in fk.KEYS))
+            got = fk.xyzz_add(tf, P, Q)
+            live = P["zz"].ne(0).any(-1) & Q["zz"].ne(0).any(-1)
+            res["k2_add"].append({
+                "live_share": float(live.float().mean()),
+                "max_abs_err": max(int((got[k].long() - r).abs().max())
+                                   for k, r in zip(fk.KEYS, ref)),
+                **_busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))})
     for level, (a, _) in zip(("l1", "l2"), seen["accum"]):
         args = a[:4] + ("complete",) + a[5:]
         res[f"k4_complete_{level}"] = _busy_ms(torch, lambda: msm3.accum(*args))
@@ -201,8 +318,10 @@ def main(argv=None) -> int:
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                stdout=subprocess.PIPE, text=True).stdout.strip()}
-    if hasattr(_build.lib(), "nt_chain_probe"):
-        res["chain"] = _chain(torch, np, rng, tf, _build)
+    res["registers_spills"] = _ptxas(_build)
+    res["chain"] = _chain(torch, np, rng, tf, _build,
+                          _probe_lib(os.path.abspath(args.root), _build))
+    res["k1"] = _k1(torch, np, rng, fk, TField(pallas.scalar))
     for nb in (1 << 15, 1 << 13):
         table = {k: _rand_rows(torch, np, rng, nb) for k in keys}
         res[f"bucket_reduce_{nb}_ms"] = _ms(torch, lambda: msm2._bucket_reduce(tf, table))
