@@ -22,19 +22,25 @@ result line):
    just before and read just after; results held against the host
    Pippenger (msm_host) and batch against sequential;
 3. each kernel against its plain PyTorch version on the main path's
-   shapes (K1 at 2^20 elements of both Pallas fields, K2/K3 at 2^16 lanes
-   with identity, P = Q and P = -Q lanes, K4 on the commit's sorted
-   sequence (level 1: affine bases read through the sort permutation) and
-   on its column carries (level 2: XYZZ), each in fast and complete mode;
-   K2s, K5 and K2 on what a commit gives them: the 4,096 level-2 carries,
-   the 2^15-bucket table, the 2^15-row adds; K2s also on the commit's
-   32,768 level-1 carries, whose digits repeat, and on a 4,096-carry column
-   with runs across its slices and 0 / -1 padding), compared bitwise (K4:
-   the tail table, the carries and the flags);
+   shapes (K1 at 2^20 elements of every field of fields/spec.py, most
+   operands in [p, 2^256), with edge values and a one-row operand on
+   either side; K2/K3 at 2^16 lanes with identity, P = Q and P = -Q lanes,
+   and K2 on 2^16 random rows with identity lanes; K4 on the commit's
+   sorted sequence (level 1: affine bases read through the sort
+   permutation) and on its column carries (level 2: XYZZ), each in fast
+   and complete mode; K2s, K5 and K2 on what a commit gives them: the
+   4,096 level-2 carries, the 2^15-bucket table, the 2^15-row adds; K2s
+   also on the commit's 32,768 level-1 carries, whose digits repeat, and
+   on a 4,096-carry column with runs across its slices and 0 / -1
+   padding), compared bitwise (K4: the tail table, the carries and the
+   flags);
 4. timing with CUDA events (median of 5 runs after warm-up): each
    kernel and its plain version, K2 and K3 at the path's shapes (2^15
-   rows, one row), and the
-   msm3m workload (sequential and batch-of-4 points/s);
+   rows, one row); device ms under torch.profiler of K1 at its callers'
+   shapes (nova_tpu_torch/perf/bucket_stage.py::k1_shapes) and of K2 on
+   the 2^15-row adds, each beside its bound; the probe's chained product,
+   add and doubling (one warp, and the card's rate); and the msm3m
+   workload (sequential and batch-of-4 points/s);
 5. the fold step: PublicParams.setup(Pallas, Vesta, a squaring chain of
    2^17 - 9,818 constraints) on CUDA, then RecursiveSNARK.new, 5
    prove_steps (the bump, the tape build, 3 timed replays, split by the

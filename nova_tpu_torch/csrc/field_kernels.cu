@@ -22,18 +22,20 @@ namespace {
 // flagged by the wrapper and read once a block into shared memory, so no
 // copy of it is ever written. Device time against the bound at the path's
 // shapes is in PERF.md section 6 (nova_tpu_torch/perf/bucket_stage.py).
+template <bool A_ONE, bool B_ONE>
 __global__ void __launch_bounds__(256)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                int32_t* __restrict__ out, int64_t n, int a_one, int b_one,
-                FieldConsts fc) {
+                int32_t* __restrict__ out, int64_t n, FieldConsts fc) {
   __shared__ Fe row[2];
-  if (threadIdx.x == 0 && a_one) row[0] = fe_load(a);
-  if (threadIdx.x == 1 && b_one) row[1] = fe_load(b);
-  __syncthreads();
+  if (A_ONE || B_ONE) {
+    if (A_ONE && threadIdx.x == 0) row[0] = fe_load(a);
+    if (B_ONE && threadIdx.x == 1) row[1] = fe_load(b);
+    __syncthreads();
+  }
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fe x = a_one ? row[0] : fe_load(a + i * NL);
-  const Fe y = b_one ? row[1] : fe_load(b + i * NL);
+  const Fe x = A_ONE ? row[0] : fe_load(a + i * NL);
+  const Fe y = B_ONE ? row[1] : fe_load(b + i * NL);
   fe_store(out + i * NL, fe_mul(x, y, fc));
 }
 
@@ -144,9 +146,15 @@ const char* nt_error_string(int err) {
 int nt_mont_mul(const void* a, const void* b, void* out, int64_t n, int a_one,
                 int b_one, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  mont_mul_kernel<<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, n, a_one, b_one,
-      load_consts(consts));
+  const unsigned blocks = blocks_for(n, 256);
+  cudaStream_t s = (cudaStream_t)stream;
+  const FieldConsts fc = load_consts(consts);
+  const int32_t *pa = (const int32_t*)a, *pb = (const int32_t*)b;
+  int32_t* po = (int32_t*)out;
+  if (a_one && b_one) mont_mul_kernel<true, true><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
+  else if (a_one) mont_mul_kernel<true, false><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
+  else if (b_one) mont_mul_kernel<false, true><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
+  else mont_mul_kernel<false, false><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
   return (int)cudaGetLastError();
 }
 

@@ -133,6 +133,40 @@ def _probe_lib(root: str, _build):
     return lib
 
 
+def _sass_loop(so: str, kernel: str, nvcc: str) -> dict:
+    """SASS of the probe's chain loop (the instructions between a backward
+    branch and its target) in the kernel whose mangled name contains
+    `kernel`: instruction count by opcode, from cuobjdump -sass."""
+    import re
+
+    text = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so],
+                          stdout=subprocess.PIPE, text=True).stdout
+    body, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        if inside:
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                body.append(("label", m.group(1)))
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*(.*)", line)
+            if m:
+                body.append((m.group(2), m.group(3)))
+    labels = {arg: i for i, (op, arg) in enumerate(body) if op == "label"}
+    loops = [(labels[t.group(1)], i) for i, (op, arg) in enumerate(body)
+             if op.startswith("BRA") and (t := re.search(r"(\.L_x_\d+)", arg))
+             and labels.get(t.group(1), i) < i]
+    lo, hi = max(loops, key=lambda ab: ab[1] - ab[0]) if loops else (0, len(body))
+    ops = {}
+    for op, _ in body[lo:hi + 1]:
+        if op != "label":
+            ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+    return {"instructions": sum(ops.values()),
+            "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
 def _chain(torch, np, rng, tf, _build, lib):
     """us per step of a chained add, doubling or product on one warp, and
     steps per us on 132 blocks of 256 threads; random field elements, so
@@ -290,6 +324,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--key-cache", default=None)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--probe-only", action="store_true",
+                    help="stop after the registers, the probe and its SASS")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -319,8 +355,12 @@ def main(argv=None) -> int:
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                stdout=subprocess.PIPE, text=True).stdout.strip()}
     res["registers_spills"] = _ptxas(_build)
-    res["chain"] = _chain(torch, np, rng, tf, _build,
-                          _probe_lib(os.path.abspath(args.root), _build))
+    probe = _probe_lib(os.path.abspath(args.root), _build)
+    res["chain"] = _chain(torch, np, rng, tf, _build, probe)
+    res["product_loop_sass"] = _sass_loop(probe._name, "point_chain_kernelILi2E",
+                                          _build._nvcc())
+    if args.probe_only:
+        return _emit(res, args.out)
     res["k1"] = _k1(torch, np, rng, fk, TField(pallas.scalar))
     for nb in (1 << 15, 1 << 13):
         table = {k: _rand_rows(torch, np, rng, nb) for k in keys}
@@ -365,11 +405,16 @@ def main(argv=None) -> int:
     res["complete_add"] = _complete_adds(
         torch, fk, msm2, msm3, lambda: pedersen.CommitmentEngine.commit(ck, v),
         lambda: msm2.msm_device2(scal, device_bases=db, reuse=True))
+    return _emit(res, args.out)
+
+
+def _emit(res: dict, out) -> int:
+    """Print the result as one JSON line and append it to `out`."""
     line = json.dumps(res)
     print(line)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "a") as fh:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "a") as fh:
             fh.write(line + "\n")
     return 0
 
