@@ -156,11 +156,6 @@ __device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t 
   asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
   return r;
 }
-__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t r;
-  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-  return r;
-}
 __device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t r;
   asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
@@ -213,48 +208,110 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b, const FieldConsts
 
 // -- the Montgomery product ---------------------------------------------------
 //
-// a*b*2^-256 mod p by the contract above: CIOS over 32-bit words with PTX
-// carry chains, each row's products added in two passes (low halves into
-// words j, high halves into words j + 1) on one 10-word accumulator.
+// a*b*2^-256 mod p by the contract above, word-serial in b (8 rows, each
+// a*b_i then m_i*p with m_i = t_0 * n0) like CIOS, but with the partial
+// products split by the parity of their word of a (or p) into two
+// accumulators, `ev` (words at positions 0..7) and `od` (positions 1..8),
+// after the even/odd scheme of Emmart, Luitjens, Weems and Woolley
+// ("Optimizing Modular Multiplication for NVIDIA's Maxwell GPUs", ARITH
+// 2016) and sppark's mont_t: each row is two chains of 8 carry-propagating
+// multiply-adds (lo, hi, lo, hi, ...) instead of one chain of 16, and the
+// two interleave. The shift by one word after a row is a renaming: the odd
+// accumulator becomes the even one, the even one moves down two words into
+// the odd one while the next row's odd products are added. `x` (position 9)
+// takes every carry out of the top, because a, b < 2^256 are not assumed
+// canonical: a row's sum t + a*b_i + m_i*p stays below 2^32 (2^256 + p) but
+// may pass 2^288 in any field (for secp, whose p is within 2^33 of 2^256,
+// even with canonical inputs), so no field may drop that carry. The Python model in tests/test_torch_field_product.py
+// repeats this schedule op for op.
+//
+// Latency and throughput of a chained product, and of the kernels that use
+// it, are in PERF.md section 6 (nova_tpu_torch/perf/bucket_stage.py, probe
+// mode 2).
 
-// t += lo(x_j * y) at words j = 0..7: one chain, its carry into words 8, 9.
-__device__ __forceinline__ void mac_lo(uint32_t t[NW + 2], const uint32_t x[NW], uint32_t y) {
-  t[0] = ptx::mad_lo_cc(x[0], y, t[0]);
+// Row 0: ev = a_even * b0, od = a_odd * b0 (no overlap, no carries).
+__device__ __forceinline__ void mul_row0(uint32_t ev[NW], uint32_t od[NW], const Fe& a,
+                                         uint32_t bi) {
 #pragma unroll
-  for (int j = 1; j < NW; j++) t[j] = ptx::madc_lo_cc(x[j], y, t[j]);
-  t[NW] = ptx::addc_cc(t[NW], 0u);
-  t[NW + 1] = ptx::addc(t[NW + 1], 0u);
+  for (int j = 0; j < NW; j += 2) {
+    ev[j] = a.w[j] * bi;
+    ev[j + 1] = __umulhi(a.w[j], bi);
+    od[j] = a.w[j + 1] * bi;
+    od[j + 1] = __umulhi(a.w[j + 1], bi);
+  }
 }
 
-// t += hi(x_j * y) at words j + 1 = 1..8: one chain, its carry into word 9.
-__device__ __forceinline__ void mac_hi(uint32_t t[NW + 2], const uint32_t x[NW], uint32_t y) {
-  t[1] = ptx::mad_hi_cc(x[0], y, t[1]);
+// Rows 1..7: `e` holds the previous odd accumulator and becomes the even
+// one; `o` holds the previous even one (its word 0 is zero after the
+// reduction) and becomes the odd one, two words down, with the carry word
+// x of position 9 entering at its top.
+__device__ __forceinline__ void mul_row(uint32_t e[NW], uint32_t o[NW], uint32_t& x,
+                                        const Fe& a, uint32_t bi) {
+  e[0] = ptx::add_cc(e[0], o[1]);
 #pragma unroll
-  for (int j = 1; j < NW; j++) t[j + 1] = ptx::madc_hi_cc(x[j], y, t[j + 1]);
-  t[NW + 1] = ptx::addc(t[NW + 1], 0u);
+  for (int j = 0; j < NW - 2; j += 2) {
+    o[j] = ptx::madc_lo_cc(a.w[j + 1], bi, o[j + 2]);
+    o[j + 1] = ptx::madc_hi_cc(a.w[j + 1], bi, o[j + 3]);
+  }
+  o[NW - 2] = ptx::madc_lo_cc(a.w[NW - 1], bi, 0u);
+  o[NW - 1] = ptx::madc_hi_cc(a.w[NW - 1], bi, x);
+  x = ptx::addc(0u, 0u);
+  e[0] = ptx::mad_lo_cc(a.w[0], bi, e[0]);
+  e[1] = ptx::madc_hi_cc(a.w[0], bi, e[1]);
+#pragma unroll
+  for (int j = 2; j < NW; j += 2) {
+    e[j] = ptx::madc_lo_cc(a.w[j], bi, e[j]);
+    e[j + 1] = ptx::madc_hi_cc(a.w[j], bi, e[j + 1]);
+  }
+  o[NW - 1] = ptx::addc_cc(o[NW - 1], 0u);
+  x = ptx::addc(x, 0u);
+}
+
+// The row's reduction: m = ev[0] * n0, ev += p_even * m (ev[0] becomes 0),
+// od += p_odd * m; carries out of the top go to x.
+__device__ __forceinline__ void redc_row(uint32_t ev[NW], uint32_t od[NW], uint32_t& x,
+                                         const FieldConsts& fc) {
+  const uint32_t m = ev[0] * fc.n0;
+  od[0] = ptx::mad_lo_cc(fc.p[1], m, od[0]);
+  od[1] = ptx::madc_hi_cc(fc.p[1], m, od[1]);
+#pragma unroll
+  for (int j = 2; j < NW; j += 2) {
+    od[j] = ptx::madc_lo_cc(fc.p[j + 1], m, od[j]);
+    od[j + 1] = ptx::madc_hi_cc(fc.p[j + 1], m, od[j + 1]);
+  }
+  x = ptx::addc(x, 0u);
+  ev[0] = ptx::mad_lo_cc(fc.p[0], m, ev[0]);
+  ev[1] = ptx::madc_hi_cc(fc.p[0], m, ev[1]);
+#pragma unroll
+  for (int j = 2; j < NW; j += 2) {
+    ev[j] = ptx::madc_lo_cc(fc.p[j], m, ev[j]);
+    ev[j + 1] = ptx::madc_hi_cc(fc.p[j], m, ev[j + 1]);
+  }
+  od[NW - 1] = ptx::addc_cc(od[NW - 1], 0u);
+  x = ptx::addc(x, 0u);
 }
 
 __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts& fc) {
-  uint32_t t[NW + 2];
+  uint32_t u[NW], v[NW], x = 0u;
+  mul_row0(u, v, a, b.w[0]);
+  redc_row(u, v, x, fc);
 #pragma unroll
-  for (int j = 0; j < NW; j++) t[j] = a.w[j] * b.w[0];  // row 0's low halves
-  t[NW] = 0u;
-  t[NW + 1] = 0u;
-  mac_hi(t, a.w, b.w[0]);
-#pragma unroll
-  for (int i = 0; i < NW; i++) {
-    if (i > 0) {
-      mac_lo(t, a.w, b.w[i]);
-      mac_hi(t, a.w, b.w[i]);
+  for (int i = 1; i < NW; i += 2) {  // the accumulators swap roles each row
+    mul_row(v, u, x, a, b.w[i]);
+    redc_row(v, u, x, fc);
+    if (i + 1 < NW) {
+      mul_row(u, v, x, a, b.w[i + 1]);
+      redc_row(u, v, x, fc);
     }
-    const uint32_t m = t[0] * fc.n0;
-    mac_lo(t, fc.p, m);  // t[0] becomes 0
-    mac_hi(t, fc.p, m);
-#pragma unroll
-    for (int k = 0; k < NW + 1; k++) t[k] = t[k + 1];  // t /= 2^32
-    t[NW + 1] = 0u;
   }
-  return fe_cond_sub(t, t[NW], fc);  // T = t[0..8] < 2^256 + p
+  // after row 7 the even accumulator is v (v[0] = 0) and the odd one u:
+  // T = (v + u * 2^32 + x * 2^288) / 2^32 < 2^256 + p
+  uint32_t t[NW];
+  t[0] = ptx::add_cc(u[0], v[1]);
+#pragma unroll
+  for (int j = 1; j < NW - 1; j++) t[j] = ptx::addc_cc(u[j], v[j + 1]);
+  t[NW - 1] = ptx::addc_cc(u[NW - 1], 0u);
+  return fe_cond_sub(t, ptx::addc(x, 0u), fc);
 }
 
 // -- XYZZ points (a = 0), the formulas of nova_tpu/ops/msm2.py ----------------
