@@ -366,16 +366,12 @@ __device__ __forceinline__ Pt xyzz_add_general(const Pt& P, const Pt& Q, const F
   return R;
 }
 
-// _xyzz_add_limbs: complete XYZZ + XYZZ (identity, P = Q, P = -Q). The
-// general formula runs first as straight-line code and the identity and
-// P = +-Q cases are selected after it, so a chain of adds has no branch
-// before its products: a chained add takes 12.7-12.9 us on a warp that runs
-// alone against 19.3-20.4 us when the cases branch first, and the card
-// completes 1,854 adds/us against 1,370-1,447 (nova_tpu_torch/perf/
-// bucket_stage.py on NVIDIA H100 80GB HBM3, 700.00 W). An identity operand
-// costs the general formula's work all the same.
-__device__ __forceinline__ Pt xyzz_add(const Pt& P, const Pt& Q, const FieldConsts& fc) {
-  const bool pz = fe_is_zero(P.zz), qz = fe_is_zero(Q.zz);
+// _xyzz_add_limbs where neither operand is the identity: the general
+// formula, then the P = Q (doubling) and P = -Q (identity) cases selected
+// after it, so a chain of adds has no branch before its products. Q is dead
+// after its six products; a caller that settles identity operands itself
+// (K2, B6) keeps fewer registers live than with xyzz_add.
+__device__ __forceinline__ Pt xyzz_add_live(const Pt& P, const Pt& Q, const FieldConsts& fc) {
   const Fe u1 = fe_mul(P.x, Q.zz, fc);
   const Fe u2 = fe_mul(Q.x, P.zz, fc);
   const Fe s1 = fe_mul(P.y, Q.zzz, fc);
@@ -383,8 +379,6 @@ __device__ __forceinline__ Pt xyzz_add(const Pt& P, const Pt& Q, const FieldCons
   const Fe pd = fe_sub(u2, u1, fc);
   const Fe r = fe_sub(s2, s1, fc);
   Pt R = xyzz_add_general(P, Q, u1, s1, pd, r, fc);
-  if (pz) return Q;
-  if (qz) return P;
   if (fe_is_zero(pd)) {
     if (fe_is_zero(r)) return xyzz_dbl_raw(P, fc);
     R.x = fe_one(fc);
@@ -392,6 +386,19 @@ __device__ __forceinline__ Pt xyzz_add(const Pt& P, const Pt& Q, const FieldCons
     R.zz = fe_zero();
     R.zzz = fe_zero();
   }
+  return R;
+}
+
+// _xyzz_add_limbs: complete XYZZ + XYZZ (identity, P = Q, P = -Q), the
+// identity cases selected after the straight-line formula: a chained add
+// takes 12.0-12.9 us on a warp that runs alone against 19.3-20.4 us when the
+// cases branch first (PR 5's product; PERF.md section 6 has the times with
+// the carry-chain product).
+__device__ __forceinline__ Pt xyzz_add(const Pt& P, const Pt& Q, const FieldConsts& fc) {
+  const bool pz = fe_is_zero(P.zz), qz = fe_is_zero(Q.zz);
+  const Pt R = xyzz_add_live(P, Q, fc);
+  if (pz) return Q;
+  if (qz) return P;
   return R;
 }
 

@@ -113,7 +113,7 @@ xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
   const int64_t j = base + list[t];
   const Pt P = pt_load(px, py, pzz, pzzz, j);
   const Pt Q = pt_load(qx, qy, qzz, qzzz, j);
-  pt_store(ox, oy, ozz, ozzz, j, xyzz_add(P, Q, fc));
+  pt_store(ox, oy, ozz, ozzz, j, xyzz_add_live(P, Q, fc));
 }
 
 // K3 replaces pallas_kernels.py::_xyzz_double_call (dbl-2008-s-1, a = 0).

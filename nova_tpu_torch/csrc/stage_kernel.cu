@@ -190,7 +190,12 @@ stage_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
         const Pt P = sh_load(sh, lane);
         const Pt Q = sh_load(sh, lane + s);
         if (MODE == MODE_COMPLETE) {
-          R = xyzz_add(P, Q, fc);
+          // xyzz_add, with the identity cases read back from the window
+          // after the formula instead of kept in registers through it
+          const bool pz = fe_is_zero(P.zz), qz = fe_is_zero(Q.zz);
+          R = xyzz_add_live(P, Q, fc);
+          if (pz) R = sh_load(sh, lane + s);
+          else if (qz) R = sh_load(sh, lane);
         } else {
           bool bad;
           if (MODE == MODE_FAST0 && r == 0) {

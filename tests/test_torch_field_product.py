@@ -102,6 +102,9 @@ class _Carry:
         self.cf = v >> 32
         return v & M32
 
+    def add_cc(self, x, y):
+        return self._set(x + y)
+
     def addc_cc(self, x, y):
         return self._set(x + y + self.cf)
 
@@ -114,26 +117,51 @@ class _Carry:
     def madc_lo_cc(self, a, b, c):
         return self._set(((a * b) & M32) + c + self.cf)
 
-    def mad_hi_cc(self, a, b, c):
-        return self._set(((a * b) >> 32) + c)
-
     def madc_hi_cc(self, a, b, c):
         return self._set(((a * b) >> 32) + c + self.cf)
 
 
-def _mac_lo(c, t, x, y):
-    t[0] = c.mad_lo_cc(x[0], y, t[0])
-    for j in range(1, 8):
-        t[j] = c.madc_lo_cc(x[j], y, t[j])
-    t[8] = c.addc_cc(t[8], 0)
-    t[9] = c.addc(t[9], 0)
+def _mul_row0(ev, od, A, bi):
+    for j in range(0, 8, 2):
+        ev[j], ev[j + 1] = (A[j] * bi) & M32, (A[j] * bi) >> 32
+        od[j], od[j + 1] = (A[j + 1] * bi) & M32, (A[j + 1] * bi) >> 32
 
 
-def _mac_hi(c, t, x, y):
-    t[1] = c.mad_hi_cc(x[0], y, t[1])
-    for j in range(1, 8):
-        t[j + 1] = c.madc_hi_cc(x[j], y, t[j + 1])
-    t[9] = c.addc(t[9], 0)
+def _mul_row(c, e, o, x, A, bi):
+    """field.cuh::mul_row; returns the new carry word x."""
+    e[0] = c.add_cc(e[0], o[1])
+    for j in range(0, 6, 2):
+        o[j] = c.madc_lo_cc(A[j + 1], bi, o[j + 2])
+        o[j + 1] = c.madc_hi_cc(A[j + 1], bi, o[j + 3])
+    o[6] = c.madc_lo_cc(A[7], bi, 0)
+    o[7] = c.madc_hi_cc(A[7], bi, x)
+    x = c.addc(0, 0)
+    e[0] = c.mad_lo_cc(A[0], bi, e[0])
+    e[1] = c.madc_hi_cc(A[0], bi, e[1])
+    for j in range(2, 8, 2):
+        e[j] = c.madc_lo_cc(A[j], bi, e[j])
+        e[j + 1] = c.madc_hi_cc(A[j], bi, e[j + 1])
+    o[7] = c.addc_cc(o[7], 0)
+    return c.addc(x, 0)
+
+
+def _redc_row(c, ev, od, x, P, n0):
+    """field.cuh::redc_row; returns the new carry word x."""
+    m = (ev[0] * n0) & M32
+    od[0] = c.mad_lo_cc(P[1], m, od[0])
+    od[1] = c.madc_hi_cc(P[1], m, od[1])
+    for j in range(2, 8, 2):
+        od[j] = c.madc_lo_cc(P[j + 1], m, od[j])
+        od[j + 1] = c.madc_hi_cc(P[j + 1], m, od[j + 1])
+    x = c.addc(x, 0)
+    ev[0] = c.mad_lo_cc(P[0], m, ev[0])
+    ev[1] = c.madc_hi_cc(P[0], m, ev[1])
+    for j in range(2, 8, 2):
+        ev[j] = c.madc_lo_cc(P[j], m, ev[j])
+        ev[j + 1] = c.madc_hi_cc(P[j], m, ev[j + 1])
+    assert ev[0] == 0
+    od[7] = c.addc_cc(od[7], 0)
+    return c.addc(x, 0)
 
 
 def fe_mul_model(a: int, b: int, p: int) -> int:
@@ -141,24 +169,26 @@ def fe_mul_model(a: int, b: int, p: int) -> int:
     A, B, P = ([(v >> (32 * k)) & M32 for k in range(8)] for v in (a, b, p))
     n0 = -pow(p, -1, 1 << 32) % (1 << 32)
     c = _Carry()
-    t = [(A[j] * B[0]) & M32 for j in range(8)] + [0, 0]
-    _mac_hi(c, t, A, B[0])
-    for i in range(8):
-        if i > 0:
-            _mac_lo(c, t, A, B[i])
-            _mac_hi(c, t, A, B[i])
-        m = (t[0] * n0) & M32
-        _mac_lo(c, t, P, m)
-        _mac_hi(c, t, P, m)
-        assert t[0] == 0
-        t = t[1:] + [0]
+    u, v, x = [0] * 8, [0] * 8, 0
+    _mul_row0(u, v, A, B[0])
+    x = _redc_row(c, u, v, x, P, n0)
+    for i in range(1, 8, 2):  # the accumulators swap roles each row
+        x = _mul_row(c, v, u, x, A, B[i])
+        x = _redc_row(c, v, u, x, P, n0)
+        if i + 1 < 8:
+            x = _mul_row(c, u, v, x, A, B[i + 1])
+            x = _redc_row(c, u, v, x, P, n0)
+    t = [c.add_cc(u[0], v[1])]
+    t += [c.addc_cc(u[j], v[j + 1]) for j in range(1, 7)]
+    t.append(c.addc_cc(u[7], 0))
+    top = c.addc(x, 0)
     # fe_cond_sub: one subtract of p when T >= p or T overflows 2^256
     d, borrow = [], 0
     for j in range(8):
-        v = t[j] - P[j] - borrow
-        d.append(v & M32)
-        borrow = int(v < 0)
-    words = d if (borrow == 0 or t[8] != 0) else t[:8]
+        w = t[j] - P[j] - borrow
+        d.append(w & M32)
+        borrow = int(w < 0)
+    words = d if (borrow == 0 or top != 0) else t
     return sum(w << (32 * k) for k, w in enumerate(words))
 
 
