@@ -1043,11 +1043,12 @@ def run(args) -> dict:
     bf = TField(pallas_base)
     sf = TField(pallas_scalar)
     errs, timed = {}, {}
-    # K1 in every field of fields/spec.py on 2^20 rows of full 16-bit limbs
-    # (most operands of the 254- and 255-bit fields lie in [p, 2^256)), with
-    # edge values on both sides and a one-row operand on either side (a
-    # constant, read once a block)
-    m16 = rng.integers(0, 1 << 16, size=(1 << 20, 2, 16), dtype=np.int64)
+    # K1 in every field of fields/spec.py on 2^20 rows (2^12 in a rehearsal)
+    # of full 16-bit limbs (most operands of the 254- and 255-bit fields lie
+    # in [p, 2^256)), with edge values on both sides and a one-row operand on
+    # either side (a constant, read once a block)
+    m16 = rng.integers(0, 1 << 16, size=(1 << (12 if args.rehearse else 20), 2, 16),
+                       dtype=np.int64)
     worst = 0
     for fname, spec_f in sorted(ALL_FIELDS.items()):
         tf = TField(spec_f)

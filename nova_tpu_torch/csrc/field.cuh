@@ -366,12 +366,17 @@ __device__ __forceinline__ Pt xyzz_add_general(const Pt& P, const Pt& Q, const F
   return R;
 }
 
-// _xyzz_add_limbs where neither operand is the identity: the general
-// formula, then the P = Q (doubling) and P = -Q (identity) cases selected
-// after it, so a chain of adds has no branch before its products. Q is dead
-// after its six products; a caller that settles identity operands itself
-// (K2, B6) keeps fewer registers live than with xyzz_add.
-__device__ __forceinline__ Pt xyzz_add_live(const Pt& P, const Pt& Q, const FieldConsts& fc) {
+// _xyzz_add_limbs: complete XYZZ + XYZZ (identity, P = Q, P = -Q). The
+// general formula runs first as straight-line code and the identity and
+// P = +-Q cases are selected after it, so a chain of adds has no branch
+// before its products: a chained add took 12.0-12.9 us on a warp that runs
+// alone against 19.3-20.4 us when the cases branched first (PR 5's
+// product; PERF.md section 6 has the times with the carry-chain product).
+// With IDENTITY false the caller has settled identity operands itself (K2,
+// B6), so Q is dead after its six products and fewer registers stay live.
+template <bool IDENTITY>
+__device__ __forceinline__ Pt xyzz_add_cases(const Pt& P, const Pt& Q, const FieldConsts& fc) {
+  const bool pz = IDENTITY && fe_is_zero(P.zz), qz = IDENTITY && fe_is_zero(Q.zz);
   const Fe u1 = fe_mul(P.x, Q.zz, fc);
   const Fe u2 = fe_mul(Q.x, P.zz, fc);
   const Fe s1 = fe_mul(P.y, Q.zzz, fc);
@@ -379,6 +384,8 @@ __device__ __forceinline__ Pt xyzz_add_live(const Pt& P, const Pt& Q, const Fiel
   const Fe pd = fe_sub(u2, u1, fc);
   const Fe r = fe_sub(s2, s1, fc);
   Pt R = xyzz_add_general(P, Q, u1, s1, pd, r, fc);
+  if (pz) return Q;
+  if (qz) return P;
   if (fe_is_zero(pd)) {
     if (fe_is_zero(r)) return xyzz_dbl_raw(P, fc);
     R.x = fe_one(fc);
@@ -389,17 +396,40 @@ __device__ __forceinline__ Pt xyzz_add_live(const Pt& P, const Pt& Q, const Fiel
   return R;
 }
 
-// _xyzz_add_limbs: complete XYZZ + XYZZ (identity, P = Q, P = -Q), the
-// identity cases selected after the straight-line formula: a chained add
-// takes 12.0-12.9 us on a warp that runs alone against 19.3-20.4 us when the
-// cases branch first (PR 5's product; PERF.md section 6 has the times with
-// the carry-chain product).
 __device__ __forceinline__ Pt xyzz_add(const Pt& P, const Pt& Q, const FieldConsts& fc) {
-  const bool pz = fe_is_zero(P.zz), qz = fe_is_zero(Q.zz);
-  const Pt R = xyzz_add_live(P, Q, fc);
-  if (pz) return Q;
-  if (qz) return P;
-  return R;
+  return xyzz_add_cases<true>(P, Q, fc);
+}
+
+// xyzz_add where neither operand is the identity.
+__device__ __forceinline__ Pt xyzz_add_live(const Pt& P, const Pt& Q, const FieldConsts& fc) {
+  return xyzz_add_cases<false>(P, Q, fc);
+}
+
+// Raw (16-bit limb) rows: an identity test of a coordinate, and a point
+// moved from row `si` to row `di` without repacking.
+__device__ __forceinline__ bool row_is_zero(const int32_t* __restrict__ src) {
+  const int4* s = reinterpret_cast<const int4*>(src);
+  int acc = 0;
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    const int4 v = s[q];
+    acc |= v.x | v.y | v.z | v.w;
+  }
+  return acc == 0;
+}
+
+__device__ __forceinline__ void pt_copy(int32_t* x, int32_t* y, int32_t* zz, int32_t* zzz,
+                                        int64_t di, const int32_t* sx, const int32_t* sy,
+                                        const int32_t* szz, const int32_t* szzz, int64_t si) {
+  const int32_t* src[4] = {sx, sy, szz, szzz};
+  int32_t* dst[4] = {x, y, zz, zzz};
+#pragma unroll
+  for (int c = 0; c < 4; c++) {
+#pragma unroll
+    for (int q = 0; q < 4; q++)
+      reinterpret_cast<int4*>(dst[c] + di * NL)[q] =
+          reinterpret_cast<const int4*>(src[c] + si * NL)[q];
+  }
 }
 
 // _xyzz_add_limbs_fast: no doubling path; `bad` flags P = +-Q lanes whose

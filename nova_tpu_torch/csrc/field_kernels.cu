@@ -15,28 +15,74 @@ namespace {
 // multiply-adds against 192 B moved (two 64 B operands in, 64 B out, in the
 // 16-bit-limb layout), or 128 B where one operand is a single row, below
 // the ~5 int32 operations per byte at which the H100 turns compute-bound.
-// The design reads each operand once with 16 B vector loads, keeps the
-// product (field.cuh's carry-chain fe_mul) in registers, and repacks limbs
-// into 32-bit words. An operand that is one row for every element (a
-// constant: from_mont's 1, an axpy's or a sumcheck bind's scalar) is
-// flagged by the wrapper and read once a block into shared memory, so no
-// copy of it is ever written. Device time against the bound at the path's
-// shapes is in PERF.md section 6 (nova_tpu_torch/perf/bucket_stage.py).
+// A block of K1_T threads owns K1_T consecutive rows: it copies each full
+// operand's 16 KB of rows into shared memory with coalesced 16 B loads
+// (consecutive threads, consecutive addresses), each thread computes its
+// row's product (field.cuh's carry-chain fe_mul) in registers, and the
+// results leave through shared memory the same way. A row's four 16 B
+// pieces sit at slots 4r + (q ^ ((r >> 1) & 3)), so a quarter-warp's
+// per-row reads and the coalesced copies both hit distinct banks. An
+// operand that is one row for every element (a constant: from_mont's 1, an
+// axpy's or a sumcheck bind's scalar) is flagged by the wrapper and read
+// once a block, so no copy of it is ever written. Device time against the
+// bound at the path's shapes is in PERF.md section 6
+// (nova_tpu_torch/perf/bucket_stage.py).
+constexpr int K1_T = 256;
+
+__device__ __forceinline__ int k1_slot(int r, int q) { return 4 * r + (q ^ ((r >> 1) & 3)); }
+
+// rows [base, base + nrows) of src (16-bit limbs) into the block's slots
+__device__ __forceinline__ void k1_stage_in(int4* sh, const int32_t* __restrict__ src,
+                                            int64_t base, int nrows) {
+  const int4* g = reinterpret_cast<const int4*>(src + base * NL);
+  for (int k = threadIdx.x; k < 4 * nrows; k += K1_T) sh[k1_slot(k >> 2, k & 3)] = g[k];
+}
+
+__device__ __forceinline__ Fe k1_row(const int4* sh, int r) {
+  Fe a;
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    const int4 v = sh[k1_slot(r, q)];
+    a.w[2 * q] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+    a.w[2 * q + 1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
+  }
+  return a;
+}
+
 template <bool A_ONE, bool B_ONE>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(K1_T)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ out, int64_t n, FieldConsts fc) {
+  __shared__ int4 sa[4 * K1_T], sb[4 * K1_T];
   __shared__ Fe row[2];
-  if (A_ONE || B_ONE) {
-    if (A_ONE && threadIdx.x == 0) row[0] = fe_load(a);
-    if (B_ONE && threadIdx.x == 1) row[1] = fe_load(b);
-    __syncthreads();
+  const int64_t base = (int64_t)blockIdx.x * K1_T;
+  const int nrows = (int)min((int64_t)K1_T, n - base);
+  const int t = threadIdx.x;
+  if (A_ONE) {
+    if (t == 0) row[0] = fe_load(a);
+  } else {
+    k1_stage_in(sa, a, base, nrows);
   }
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Fe x = A_ONE ? row[0] : fe_load(a + i * NL);
-  const Fe y = B_ONE ? row[1] : fe_load(b + i * NL);
-  fe_store(out + i * NL, fe_mul(x, y, fc));
+  if (B_ONE) {
+    if (t == 1) row[1] = fe_load(b);
+  } else {
+    k1_stage_in(sb, b, base, nrows);
+  }
+  __syncthreads();
+  Fe r;
+  if (t < nrows) r = fe_mul(A_ONE ? row[0] : k1_row(sa, t), B_ONE ? row[1] : k1_row(sb, t), fc);
+  __syncthreads();  // every row is read before sa takes the results
+  if (t < nrows) {
+#pragma unroll
+    for (int q = 0; q < 4; q++) {
+      const uint32_t lo = r.w[2 * q], hi = r.w[2 * q + 1];
+      sa[k1_slot(t, q)] = make_int4((int32_t)(lo & 0xFFFFu), (int32_t)(lo >> 16),
+                                    (int32_t)(hi & 0xFFFFu), (int32_t)(hi >> 16));
+    }
+  }
+  __syncthreads();
+  int4* g = reinterpret_cast<int4*>(out + base * NL);
+  for (int k = t; k < 4 * nrows; k += K1_T) g[k] = sa[k1_slot(k >> 2, k & 3)];
 }
 
 // K2 replaces pallas_kernels.py::_xyzz_add_call (complete XYZZ add). Bound:
@@ -51,24 +97,6 @@ mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 // selected are those of xyzz_add_limbs, so outputs are bit-identical.
 constexpr int ADD_T = 128;
 constexpr int ADD_WARPS = ADD_T / 32;
-
-__device__ __forceinline__ bool row_is_zero(const int32_t* __restrict__ src) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-  int acc = 0;
-#pragma unroll
-  for (int q = 0; q < 4; q++) {
-    const int4 v = s[q];
-    acc |= v.x | v.y | v.z | v.w;
-  }
-  return acc == 0;
-}
-
-__device__ __forceinline__ void row_copy(int32_t* __restrict__ dst,
-                                         const int32_t* __restrict__ src) {
-#pragma unroll
-  for (int q = 0; q < 4; q++)
-    reinterpret_cast<int4*>(dst)[q] = reinterpret_cast<const int4*>(src)[q];
-}
 
 __global__ void __launch_bounds__(ADD_T)
 xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
@@ -85,17 +113,13 @@ xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
   const int64_t i = base + t;
   bool live = false;
   if (i < n) {
-    const int64_t r = i * NL;
-    const bool pz = row_is_zero(pzz + r);
-    const bool qz = row_is_zero(qzz + r);
+    const bool pz = row_is_zero(pzz + i * NL);
+    const bool qz = row_is_zero(qzz + i * NL);
     live = !pz && !qz;
-    if (!live) {  // the identity case of xyzz_add_limbs: P = 0 gives Q
-      const bool q = pz;
-      row_copy(ox + r, (q ? qx : px) + r);
-      row_copy(oy + r, (q ? qy : py) + r);
-      row_copy(ozz + r, (q ? qzz : pzz) + r);
-      row_copy(ozzz + r, (q ? qzzz : pzzz) + r);
-    }
+    if (pz)  // the identity cases of xyzz_add_limbs: P = 0 gives Q
+      pt_copy(ox, oy, ozz, ozzz, i, qx, qy, qzz, qzzz, i);
+    else if (qz)
+      pt_copy(ox, oy, ozz, ozzz, i, px, py, pzz, pzzz, i);
   }
   const unsigned bal = __ballot_sync(0xFFFFFFFFu, live);
   if (wl == 0) warp_count[warp] = __popc(bal);
@@ -146,15 +170,15 @@ const char* nt_error_string(int err) {
 int nt_mont_mul(const void* a, const void* b, void* out, int64_t n, int a_one,
                 int b_one, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  const unsigned blocks = blocks_for(n, 256);
+  const unsigned blocks = blocks_for(n, K1_T);
   cudaStream_t s = (cudaStream_t)stream;
   const FieldConsts fc = load_consts(consts);
   const int32_t *pa = (const int32_t*)a, *pb = (const int32_t*)b;
   int32_t* po = (int32_t*)out;
-  if (a_one && b_one) mont_mul_kernel<true, true><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
-  else if (a_one) mont_mul_kernel<true, false><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
-  else if (b_one) mont_mul_kernel<false, true><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
-  else mont_mul_kernel<false, false><<<blocks, 256, 0, s>>>(pa, pb, po, n, fc);
+  if (a_one && b_one) mont_mul_kernel<true, true><<<blocks, K1_T, 0, s>>>(pa, pb, po, n, fc);
+  else if (a_one) mont_mul_kernel<true, false><<<blocks, K1_T, 0, s>>>(pa, pb, po, n, fc);
+  else if (b_one) mont_mul_kernel<false, true><<<blocks, K1_T, 0, s>>>(pa, pb, po, n, fc);
+  else mont_mul_kernel<false, false><<<blocks, K1_T, 0, s>>>(pa, pb, po, n, fc);
   return (int)cudaGetLastError();
 }
 

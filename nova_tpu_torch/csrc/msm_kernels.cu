@@ -393,11 +393,13 @@ suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict
     int drun;
     if (!repeat) {
       // one carry per run inside the slice (the main path's case): the
-      // interior runs are copied out, and only the first and last runs can
-      // continue into a neighbour
+      // interior runs are copied out as raw rows, and only the first and
+      // last runs can continue into a neighbour
 #pragma unroll 2
-      for (int p = a + 1; p + 1 < e; p++)
-        put_run(dig[p], nb, pt_load(vx, vy, vzz, vzzz, p), tx, ty, tzz, tzzz);
+      for (int p = a + 1; p + 1 < e; p++) {
+        const int d = dig[p];
+        if (d >= 1 && d <= nb) pt_copy(tx, ty, tzz, tzzz, d - 1, vx, vy, vzz, vzzz, p);
+      }
       if (E > 1) {
         TC = pt_load(vx, vy, vzz, vzzz, e - 1);
         td = dig[e - 1];

@@ -4,8 +4,9 @@ products on one warp and the card's rate (probe mode 2), K1's device time
 at the shapes its callers give it (the 2^20-row check, the commit's
 ``from_mont`` of its 2^16 scalars, the fold step's ``FVec.axpy`` at 2^17,
 the SpMV product over 2^17 nonzeros, the device outer sumcheck's round
-products and its bind at 2^17), each against its plain version, and every
-kernel's registers and spills (``ptxas.log``). Then the whole
+products and its bind at 2^17), each against its plain version, K2 on
+2^15 random rows and K3 on 2^16, and every kernel's registers and spills
+(``ptxas.log``). Then the whole
 weighted bucket reduction (``msm2._bucket_reduce``) at 2^15 buckets (a
 2^16 commit) and 2^13 (``msm_device2`` at a 2^17 witness), the suffix pass
 of the bucket totals over 4,096 column-end carries (the commit's level 3),
@@ -362,6 +363,13 @@ def main(argv=None) -> int:
     if args.probe_only:
         return _emit(res, args.out)
     res["k1"] = _k1(torch, np, rng, fk, TField(pallas.scalar))
+    # K2 on 2^15 random rows (every lane live) and K3 on 2^16 (the window
+    # precompute's shape)
+    P = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
+    Q = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
+    res["k2_random_32768_device"] = _busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))
+    D = {k: _rand_rows(torch, np, rng, 1 << 16) for k in keys}
+    res["k3_65536_device"] = _busy_ms(torch, lambda: fk.xyzz_double(tf, D))
     for nb in (1 << 15, 1 << 13):
         table = {k: _rand_rows(torch, np, rng, nb) for k in keys}
         res[f"bucket_reduce_{nb}_ms"] = _ms(torch, lambda: msm2._bucket_reduce(tf, table))
