@@ -369,9 +369,10 @@ __device__ __forceinline__ Pt xyzz_add_general(const Pt& P, const Pt& Q, const F
 // _xyzz_add_limbs: complete XYZZ + XYZZ (identity, P = Q, P = -Q). The
 // general formula runs first as straight-line code and the identity and
 // P = +-Q cases are selected after it, so a chain of adds has no branch
-// before its products: a chained add took 12.0-12.9 us on a warp that runs
-// alone against 19.3-20.4 us when the cases branched first (PR 5's
-// product; PERF.md section 6 has the times with the carry-chain product).
+// before its products: with the earlier 64-bit product a chained add took
+// 12.0-12.9 us on a warp that runs alone against 19.3-20.4 us when the cases
+// branched first (nova_tpu_torch/perf/bucket_stage.py on NVIDIA H100 80GB
+// HBM3, 700.00 W; PERF.md section 6 has the times with fe_mul above).
 // With IDENTITY false the caller has settled identity operands itself (K2,
 // B6), so Q is dead after its six products and fewer registers stay live.
 template <bool IDENTITY>

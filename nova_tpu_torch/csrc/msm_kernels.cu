@@ -350,8 +350,9 @@ bucket_reduce_kernel(const int32_t* __restrict__ tx, const int32_t* __restrict__
 // [s*E, s*E + E):
 //   1. each thread walks its slice backwards, acc = v[p] + acc while the
 //      digit repeats, writes the runs that lie inside the slice, and keeps
-//      its first run's partial (HC) and last run's (TC); a slice with no
-//      repeated digit copies its interior carries out without the walk;
+//      its first run's partial (HC) and last run's (TC); the interior
+//      carries of a slice with no repeated digit are copied out without the
+//      walk, by the whole block, consecutive threads on consecutive rows;
 //   2. runs that span slices: a segmented Hillis-Steele suffix scan of HC
 //      over the slices in shared memory, where slice s links to s + 1 when
 //      it holds a single run that the next slice continues;
@@ -379,7 +380,7 @@ suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict
                       int32_t* __restrict__ tzz, int32_t* __restrict__ tzzz, int nb,
                       FieldConsts fc) {
   __shared__ Pt val[SUF_T];  // 32 KB
-  __shared__ unsigned char fl[SUF_T];
+  __shared__ unsigned char fl[SUF_T], copies[SUF_T];
   const int S = m / E;
   const int s = threadIdx.x;
   bool multi = false, link = false, starts = false;
@@ -393,13 +394,8 @@ suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict
     int drun;
     if (!repeat) {
       // one carry per run inside the slice (the main path's case): the
-      // interior runs are copied out as raw rows, and only the first and
-      // last runs can continue into a neighbour
-#pragma unroll 2
-      for (int p = a + 1; p + 1 < e; p++) {
-        const int d = dig[p];
-        if (d >= 1 && d <= nb) pt_copy(tx, ty, tzz, tzzz, d - 1, vx, vy, vzz, vzzz, p);
-      }
+      // whole block copies the interior runs out after step 1, and only
+      // the first and last runs can continue into a neighbour
       if (E > 1) {
         TC = pt_load(vx, vy, vzz, vzzz, e - 1);
         td = dig[e - 1];
@@ -438,8 +434,16 @@ suffix_buckets_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict
     if (multi && starts) put_run(hd, nb, acc, tx, ty, tzz, tzzz);
     val[s] = acc;
     fl[s] = (multi || !link) ? 1 : 0;
+    copies[s] = !repeat;
   }
   __syncthreads();
+  // the interior carries of repeat-free slices, copied as raw rows by
+  // consecutive threads from consecutive rows
+  for (int p = s; p < m; p += SUF_T) {
+    const int o = p % E, d = dig[p];
+    if (copies[p / E] && o > 0 && o + 1 < E && d >= 1 && d <= nb)
+      pt_copy(tx, ty, tzz, tzzz, d - 1, vx, vy, vzz, vzzz, p);
+  }
   // 2. in place: each round reads its partner before the barrier, writes after
   for (int off = 1; off < S; off <<= 1) {
     const bool has = s + off < S;

@@ -5,7 +5,8 @@ at the shapes its callers give it (the 2^20-row check, the commit's
 ``from_mont`` of its 2^16 scalars, the fold step's ``FVec.axpy`` at 2^17,
 the SpMV product over 2^17 nonzeros, the device outer sumcheck's round
 products and its bind at 2^17), each against its plain version, K2 on
-2^15 random rows and K3 on 2^16, and every kernel's registers and spills
+2^15 random rows (and against its plain version on identity, P = Q and
+P = -Q lanes) and K3 on 2^16, and every kernel's registers and spills
 (``ptxas.log``). Then the whole
 weighted bucket reduction (``msm2._bucket_reduce``) at 2^15 buckets (a
 2^16 commit) and 2^13 (``msm_device2`` at a 2^17 witness), the suffix pass
@@ -368,6 +369,24 @@ def main(argv=None) -> int:
     P = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
     Q = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
     res["k2_random_32768_device"] = _busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))
+    # and K2 against its plain version where lanes are the identity on
+    # either side or both, P = Q (the doubling) and P = -Q
+    C = {k: v[:4096].clone() for k, v in Q.items()}
+    for k in keys:
+        C[k][0:64] = P[k][0:64]
+        C[k][64:128] = P[k][64:128]
+    C["y"][64:128] = tf.neg(P["y"][64:128])
+    for k in ("zz", "zzz"):
+        C[k][128:256] = 0
+        C[k][384:512] = 0
+    Pc = {k: v[:4096].clone() for k, v in P.items()}
+    for k in ("zz", "zzz"):
+        Pc[k][256:512] = 0
+    ref = fk.xyzz_add_limbs(tf.ops("cuda"), tuple(Pc[k].long() for k in keys),
+                            tuple(C[k].long() for k in keys))
+    got = fk.xyzz_add(tf, Pc, C)
+    res["k2_cases_max_abs_err"] = max(int((got[k].long() - r).abs().max())
+                                      for k, r in zip(keys, ref))
     D = {k: _rand_rows(torch, np, rng, 1 << 16) for k in keys}
     res["k3_65536_device"] = _busy_ms(torch, lambda: fk.xyzz_double(tf, D))
     for nb in (1 << 15, 1 << 13):
