@@ -208,14 +208,14 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 
 def device_ms(torch, fn, reps: int) -> float:
-    """Device-busy ms a call of fn under torch.profiler (every kernel, fill
-    and copy it launches), after one warm-up; the host clock in a
-    --rehearse run, which has no card."""
+    """Device-busy ms of a call of fn that launches each of its kernels
+    (and fills and copies) once, under torch.profiler, after one warm-up;
+    the host clock in a --rehearse run, which has no card."""
     if not torch.cuda.is_available():
         return cuda_ms(torch, fn, reps)
     from nova_tpu_torch.perf.bucket_stage import _busy_ms
 
-    return _busy_ms(torch, fn, reps)["busy_ms"]
+    return _busy_ms(torch, fn, reps)["once_ms"]
 
 
 def bound(nbytes: float, ops: float):

@@ -1,6 +1,6 @@
 // 256-bit Montgomery field arithmetic and XYZZ point formulas shared by
-// every kernel of the port (field_kernels.cu: K1-K3, msm_kernels.cu: K4-K5,
-// stage_kernel.cu: B6).
+// every kernel of the port (field_kernels.cu: K1-K3, msm_kernels.cu: K4,
+// K5 and K2s, stage_kernel.cu: B6, ubench_kernels.cu: the latency probe).
 //
 // Public layout (the JAX package's): an element is 16 int32 lanes, each a
 // 16-bit limb, little-endian, in Montgomery form with R = 2^256. Inside a
@@ -225,9 +225,14 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b, const FieldConsts
 // even with canonical inputs), so no field may drop that carry. The Python model in tests/test_torch_field_product.py
 // repeats this schedule op for op.
 //
-// Latency and throughput of a chained product, and of the kernels that use
-// it, are in PERF.md section 6 (nova_tpu_torch/perf/bucket_stage.py, probe
-// mode 2).
+// On NVIDIA H100 80GB HBM3, 700.00 W (nova_tpu_torch/perf/bucket_stage.py,
+// probe mode 2): a chained product takes 0.51-0.61 us on a warp that runs
+// alone and the card completes 39,900-43,700 products/us, against
+// 0.71-0.81 us and 27,000-29,800/us for CIOS on uint64_t (~128 dependent
+// wide multiply-adds); the probe's loop compiles to 520 SASS instructions
+// against 856. A chain is still serial in the one carry flag, so a lone
+// warp's product is latency-bound on its ~32 carry steps a row; the card's
+// rate is bound by issue. Bound of the product itself: 264 multiply-adds.
 
 // Row 0: ev = a_even * b0, od = a_odd * b0 (no overlap, no carries).
 __device__ __forceinline__ void mul_row0(uint32_t ev[NW], uint32_t od[NW], const Fe& a,

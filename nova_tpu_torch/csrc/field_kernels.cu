@@ -24,9 +24,12 @@ namespace {
 // per-row reads and the coalesced copies both hit distinct banks. An
 // operand that is one row for every element (a constant: from_mont's 1, an
 // axpy's or a sumcheck bind's scalar) is flagged by the wrapper and read
-// once a block, so no copy of it is ever written. Device time against the
-// bound at the path's shapes is in PERF.md section 6
-// (nova_tpu_torch/perf/bucket_stage.py).
+// once a block, so no copy of it is ever written. On NVIDIA H100 80GB HBM3,
+// 700.00 W (nova_tpu_torch/perf/bucket_stage.py, device time): 0.068-0.069
+// ms at 2^20 rows against its 0.060 ms bound (0.071-0.072 ms with the
+// 64-bit product and a thread's own 16 B loads); at the broadcast sites,
+// e.g. from_mont of 2^16 scalars, 0.0039 ms against 0.0025 ms, where a copy
+// of the constant and the kernel took 0.0092 ms.
 constexpr int K1_T = 256;
 
 __device__ __forceinline__ int k1_slot(int r, int q) { return 4 * r + (q ^ ((r >> 1) & 3)); }
@@ -87,39 +90,23 @@ mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 
 // K2 replaces pallas_kernels.py::_xyzz_add_call (complete XYZZ add). Bound:
 // near the balance point (14 products, 3,696 multiply-adds, against 768 B
-// moved), and where an operand is the identity the add is a copy. A block
-// owns ADD_LANES rows. Its first warp settles the rows with an identity
-// operand (P = 0 gives Q, Q = 0 gives P: plain 16 B copies of the
-// surviving rows) and compacts the rows whose operands are both live into
-// a list (a warp ballot and a prefix count). Each live row then takes a
-// quad of four threads that split the add's products by level and trade
-// operands by __shfl_sync:
-//   level 1  u1 = X1 ZZ2,  u2 = X2 ZZ1,  s1 = Y1 ZZZ2,  s2 = Y2 ZZZ1
-//   level 2  pp = pd^2,    zzp = ZZ1 ZZ2, rr = r^2,     zzzp = ZZZ1 ZZZ2
-//   level 3  ppp = pd pp,  zz3 = zzp pp,  qq = u1 pp,   -
-//   level 4  t2 = s1 ppp,  -,             t1 = r (qq - x3), zzz3 = zzzp ppp
-// (pd = u2 - u1, r = s2 - s1, x3 = rr - ppp - 2 qq, y3 = t1 - t2), so an add
-// is four products deep instead of fourteen, and every thread of a warp
-// runs the same product at each level (operands picked by select, not by
-// branch). P = Q (pd = r = 0) takes the doubling of P on the quad's first
-// thread and P = -Q (pd = 0) the identity, as in xyzz_add_limbs: the values
-// selected are the same, so outputs are bit-identical.
-constexpr int ADD_LANES = 32;
-constexpr int ADD_T = 4 * ADD_LANES;
-
-__device__ __forceinline__ Fe quad_shfl(unsigned mask, const Fe& v, int src) {
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < NW; k++) r.w[k] = __shfl_sync(mask, v.w[k], src, 4);
-  return r;
-}
-
-__device__ __forceinline__ Fe fe_pick(bool c, const Fe& a, const Fe& b) {
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < NW; k++) r.w[k] = c ? a.w[k] : b.w[k];
-  return r;
-}
+// moved), and where an operand is the identity the add is a copy. So a
+// block first settles its lanes with an identity operand (P = 0 gives Q,
+// Q = 0 gives P: plain 16 B copies of the surviving rows), then compacts
+// the lanes whose operands are both live into a list (a warp ballot and a
+// prefix count, as B6 does) and runs the complete formula, with its
+// doubling and P = -Q cases, only on that list: thread t takes entry t,
+// and warps past the list's end finish after the copies. The values
+// selected are those of xyzz_add_limbs, so outputs are bit-identical. On
+// NVIDIA H100 80GB HBM3, 700.00 W (nova_tpu_torch/perf/bucket_stage.py,
+// device time) a commit's two 2^15-row adds (78% and 12% of lanes live)
+// take 0.0168 and 0.0146 ms against a 0.0075 ms bound (bytes), where every
+// lane computing the formula took 0.0206 ms each: with ~8 warps an SM the
+// time is one add's latency plus the loads. Splitting a live add over four
+// threads (shuffling operands between its four product levels) took 0.0174
+// and 0.0118 ms: slower where most lanes are live, so it is not used.
+constexpr int ADD_T = 128;
+constexpr int ADD_WARPS = ADD_T / 32;
 
 __global__ void __launch_bounds__(ADD_T)
 xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
@@ -129,75 +116,38 @@ xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                 int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                 int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz, int64_t n,
                 FieldConsts fc) {
-  __shared__ int list[ADD_LANES];
-  __shared__ int count;
-  const int t = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.x * ADD_LANES;
-  if (t < 32) {
-    const int64_t i = base + t;
-    bool live = false;
-    if (i < n) {
-      const bool pz = row_is_zero(pzz + i * NL);
-      const bool qz = row_is_zero(qzz + i * NL);
-      live = !pz && !qz;
-      if (pz)  // the identity cases of xyzz_add_limbs: P = 0 gives Q
-        pt_copy(ox, oy, ozz, ozzz, i, qx, qy, qzz, qzzz, i);
-      else if (qz)
-        pt_copy(ox, oy, ozz, ozzz, i, px, py, pzz, pzzz, i);
-    }
-    const unsigned bal = __ballot_sync(0xFFFFFFFFu, live);
-    if (live) list[__popc(bal & ((1u << t) - 1u))] = t;
-    if (t == 0) count = __popc(bal);
+  __shared__ int list[ADD_T];
+  __shared__ int warp_count[ADD_WARPS];
+  const int t = threadIdx.x, warp = t >> 5, wl = t & 31;
+  const int64_t base = (int64_t)blockIdx.x * ADD_T;
+  const int64_t i = base + t;
+  bool live = false;
+  if (i < n) {
+    const bool pz = row_is_zero(pzz + i * NL);
+    const bool qz = row_is_zero(qzz + i * NL);
+    live = !pz && !qz;
+    if (pz)  // the identity cases of xyzz_add_limbs: P = 0 gives Q
+      pt_copy(ox, oy, ozz, ozzz, i, qx, qy, qzz, qzzz, i);
+    else if (qz)
+      pt_copy(ox, oy, ozz, ozzz, i, px, py, pzz, pzzz, i);
   }
+  const unsigned bal = __ballot_sync(0xFFFFFFFFu, live);
+  if (wl == 0) warp_count[warp] = __popc(bal);
   __syncthreads();
-  const int k = t >> 2, q = t & 3;
-  if (k >= count) return;  // whole quads leave together
-  const unsigned mask = 0xFu << (t & 28);
-  const int64_t j = (base + list[k]) * NL;
-  // level 1: q0 u1 = X1 ZZ2, q1 u2 = X2 ZZ1, q2 s1 = Y1 ZZZ2, q3 s2 = Y2 ZZZ1
-  const Fe a = fe_load((q == 0 ? px : q == 1 ? qx : q == 2 ? py : qy) + j);
-  const Fe b = fe_load((q == 0 ? qzz : q == 1 ? pzz : q == 2 ? qzzz : pzzz) + j);
-  const Fe m1 = fe_mul(a, b, fc);
-  // odd threads pass their product, even ones their second operand:
-  // q0 gets u2, q1 ZZ2, q2 s2, q3 ZZZ2
-  const Fe e1 = quad_shfl(mask, (q & 1) ? m1 : b, q ^ 1);
-  const Fe d = fe_sub(e1, m1, fc);  // q0: pd, q2: r
-  // level 2: q0 pp = pd^2, q1 zzp = ZZ1 ZZ2, q2 rr = r^2, q3 zzzp = ZZZ1 ZZZ2
-  const Fe m2 = fe_mul(fe_pick(q & 1, b, d), fe_pick(q & 1, e1, d), fc);
-  const Fe pp = quad_shfl(mask, m2, 0);
-  const Fe u1 = quad_shfl(mask, m1, 0);
-  // level 3: q0 ppp = pd pp, q1 zz3 = zzp pp, q2 qq = u1 pp
-  const Fe m3 = fe_mul(fe_pick(q == 0, d, fe_pick(q == 2, u1, m2)), pp, fc);
-  const Fe ppp = quad_shfl(mask, m3, 0);
-  const Fe s1 = quad_shfl(mask, m1, 2);
-  const Fe x3 = fe_sub(fe_sub(m2, ppp, fc), fe_dbl(m3, fc), fc);  // q2: rr - ppp - 2 qq
-  // level 4: q0 t2 = s1 ppp, q2 t1 = r (qq - x3), q3 zzz3 = zzzp ppp
-  const Fe m4 = fe_mul(fe_pick(q == 0, s1, fe_pick(q == 2, d, m2)),
-                       fe_pick(q == 2, fe_sub(m3, x3, fc), ppp), fc);
-  const Fe t2 = quad_shfl(mask, m4, 0);
-  const bool pd_zero = __shfl_sync(mask, (int)fe_is_zero(d), 0, 4) != 0;
-  const bool r_zero = __shfl_sync(mask, (int)fe_is_zero(d), 2, 4) != 0;
-  if (pd_zero) {  // P = Q: the doubling of P; P = -Q: the identity
-    if (q == 0) {
-      Pt R;
-      if (r_zero) {
-        R = xyzz_dbl_raw(pt_load(px, py, pzz, pzzz, j / NL), fc);
-      } else {
-        R.x = fe_one(fc);
-        R.y = fe_one(fc);
-        R.zz = fe_zero();
-        R.zzz = fe_zero();
-      }
-      pt_store(ox, oy, ozz, ozzz, j / NL, R);
-    }
-    return;
+  int before = 0, count = 0;
+#pragma unroll
+  for (int w = 0; w < ADD_WARPS; w++) {
+    const int c = warp_count[w];
+    if (w < warp) before += c;
+    count += c;
   }
-  if (q == 1) fe_store(ozz + j, m3);
-  if (q == 2) {
-    fe_store(ox + j, x3);
-    fe_store(oy + j, fe_sub(m4, t2, fc));  // y3 = t1 - t2
-  }
-  if (q == 3) fe_store(ozzz + j, m4);
+  if (live) list[before + __popc(bal & ((1u << wl) - 1u))] = t;
+  __syncthreads();
+  if (t >= count) return;
+  const int64_t j = base + list[t];
+  const Pt P = pt_load(px, py, pzz, pzzz, j);
+  const Pt Q = pt_load(qx, qy, qzz, qzzz, j);
+  pt_store(ox, oy, ozz, ozzz, j, xyzz_add_live(P, Q, fc));
 }
 
 // K3 replaces pallas_kernels.py::_xyzz_double_call (dbl-2008-s-1, a = 0).
@@ -247,7 +197,7 @@ int nt_xyzz_add(const void* px, const void* py, const void* pzz, const void* pzz
                 void* ox, void* oy, void* ozz, void* ozzz, int64_t n,
                 const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  xyzz_add_kernel<<<blocks_for(n, ADD_LANES), ADD_T, 0, (cudaStream_t)stream>>>(
+  xyzz_add_kernel<<<blocks_for(n, ADD_T), ADD_T, 0, (cudaStream_t)stream>>>(
       (const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz,
       (const int32_t*)pzzz, (const int32_t*)qx, (const int32_t*)qy,
       (const int32_t*)qzz, (const int32_t*)qzzz, (int32_t*)ox, (int32_t*)oy,

@@ -79,7 +79,10 @@ def _rand_rows(torch, np, rng, n: int):
 
 def _busy_ms(torch, fn, reps: int = 5):
     """Device-busy ms per call of fn under torch.profiler, wall ms per call
-    (host clock) and the device ms per call of its largest kernels."""
+    (host clock) and the device ms per call of its largest kernels. The
+    profiler sometimes keeps only some of a kernel's events, so "once_ms"
+    also gives the device ms of a call that launches each of its kernels
+    once: each kernel's total divided by the events it kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,6 +101,7 @@ def _busy_ms(torch, fn, reps: int = 5):
             rows.append((us / 1e3 / reps, ev.count / reps, ev.key[:60]))
     rows.sort(reverse=True)
     return {"busy_ms": sum(r[0] for r in rows), "wall_ms": wall,
+            "once_ms": sum(ms / calls for ms, calls, _ in rows if calls),
             "top": [[ms, calls, key] for ms, calls, key in rows[:6]]}
 
 
