@@ -213,9 +213,9 @@ def device_ms(torch, fn, reps: int) -> float:
     the host clock in a --rehearse run, which has no card."""
     if not torch.cuda.is_available():
         return cuda_ms(torch, fn, reps)
-    from nova_tpu_torch.perf.bucket_stage import _busy_ms
+    from nova_tpu_torch.perf.bucket_stage import busy_ms
 
-    return _busy_ms(torch, fn, reps)["once_ms"]
+    return busy_ms(torch, fn, reps)["once_ms"]
 
 
 def bound(nbytes: float, ops: float):
@@ -1209,7 +1209,7 @@ def run(args) -> dict:
         rows_k1 = torch.broadcast_shapes(x.shape, y.shape).numel() // 16
         k1_shapes[label] = (device_ms(torch, lambda: fk.mont_mul(sf, x, y), reps),
                             bound(nbytes, MUL_OPS * rows_k1))
-    chain = {} if args.rehearse else bucket_stage._chain(torch, np, rng, bf, _build,
+    chain = {} if args.rehearse else bucket_stage.chain_probe(torch, np, rng, bf, _build,
                                                          _build.lib())
     log("K1 at its callers' shapes (device ms, (bound ms, by)): " + json.dumps(k1_shapes))
     log("chained steps on one warp (us) and on the card (per us): " + json.dumps(chain))

@@ -5,8 +5,7 @@ at the shapes its callers give it (the 2^20-row check, the commit's
 ``from_mont`` of its 2^16 scalars, the fold step's ``FVec.axpy`` at 2^17,
 the SpMV product over 2^17 nonzeros, the device outer sumcheck's round
 products and its bind at 2^17), each against its plain version, K2 on
-2^15 random rows (and against its plain version on identity, P = Q and
-P = -Q lanes) and K3 on 2^16, and every kernel's registers and spills
+2^15 random rows and K3 on 2^16, and every kernel's registers and spills
 (``ptxas.log``). Then the whole
 weighted bucket reduction (``msm2._bucket_reduce``) at 2^15 buckets (a
 2^16 commit) and 2^13 (``msm_device2`` at a 2^17 witness), the suffix pass
@@ -15,10 +14,11 @@ the device-busy time of a 2^16 commit under ``torch.profiler``, the kernels
 that run the complete add on a commit's own inputs (K2 on the 2^15-row adds
 of ``_bucket_totals``, K4 in complete mode on the level-1 sequence and the
 level-2 carries, B6 in complete mode on the first two stages of a 2^16
-``msm_device2``), and the latency of one complete add (``xyzz_add``) and
-one doubling: a chain of them on one warp, and the card's rate with 256
-threads on each SM (the probe ``nt_chain_probe`` in
-``csrc/ubench_kernels.cu``).
+``msm_device2``), and the latency of one complete add (``xyzz_add``), one
+doubling and one product: a chain of them on one warp, and the card's rate
+with 256 threads on each SM (the probe ``nt_chain_probe`` in
+``csrc/ubench_kernels.cu``), with the SASS instruction count of the
+product's chain loop.
 
     python3 nova_tpu_torch/perf/bucket_stage.py [--root DIR] [--label NAME]
         [--key-cache DIR] [--out FILE]
@@ -28,13 +28,13 @@ checkout of the repository, so two versions can be timed on one card. The
 probe is this checkout's ``csrc/ubench_kernels.cu`` built with nvcc against
 the ``field.cuh`` of ``--root`` (into this checkout's ``_build/``), so both
 versions run the same probe around their own product. K2's row reports
-the share of the commit's add lanes whose operands are both live. Each function is timed twice:
-CUDA events around the call (host enqueue included) and its device-busy
-time under ``torch.profiler`` (every kernel, fill and copy it launches, with
-the largest by name). Where that version has no one-launch suffix pass
-(``msm3.suffix_to_buckets``), its Hillis-Steele rounds
-(``msm3._suffix_segmented``) and the run-head gather (``msm3._take``) are
-timed instead: the same function. ``--key-cache`` shares one derived 2^16
+the share of the commit's add lanes whose operands are both live. Each
+function is timed twice: CUDA events around the call (host enqueue
+included) and its device-busy time under ``torch.profiler`` (every kernel,
+fill and copy it launches, with the largest by name). Where that version
+has no one-launch suffix pass (``msm3.suffix_to_buckets``), its
+Hillis-Steele rounds (``msm3._suffix_segmented``) and the run-head gather
+(``msm3._take``) are timed instead: the same function. ``--key-cache`` shares one derived 2^16
 commit key between the runs. Tables and carries are seeded random field
 elements (every add takes the general path); the carries' digits are
 distinct and sorted, as a commit's level-2 carries are. Prints one JSON
@@ -77,7 +77,7 @@ def _rand_rows(torch, np, rng, n: int):
     return torch.from_numpy(v.astype(np.int32)).cuda()
 
 
-def _busy_ms(torch, fn, reps: int = 5):
+def busy_ms(torch, fn, reps: int = 5):
     """Device-busy ms per call of fn under torch.profiler, wall ms per call
     (host clock) and the device ms per call of its largest kernels. The
     profiler sometimes keeps only some of a kernel's events, so "once_ms"
@@ -173,7 +173,7 @@ def _sass_loop(so: str, kernel: str, nvcc: str) -> dict:
             "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
 
 
-def _chain(torch, np, rng, tf, _build, lib):
+def chain_probe(torch, np, rng, tf, _build, lib):
     """us per step of a chained add, doubling or product on one warp, and
     steps per us on 132 blocks of 256 threads; random field elements, so
     every add takes the general path."""
@@ -259,7 +259,7 @@ def _k1(torch, np, rng, fk, tf) -> dict:
         got = fk.mont_mul(tf, a, b)
         err = int((got.long() - o.mul(a.long(), b.long())).abs().max().item())
         res[label] = {"rows": list(got.shape[:-1]), "bytes": nbytes, "max_abs_err": err,
-                      **_busy_ms(torch, lambda: fk.mont_mul(tf, a, b))}
+                      **busy_ms(torch, lambda: fk.mont_mul(tf, a, b))}
     return res
 
 
@@ -306,10 +306,10 @@ def _complete_adds(torch, fk, msm2, msm3, commit, witness_msm) -> dict:
                 "live_share": float(live.float().mean()),
                 "max_abs_err": max(int((got[k].long() - r).abs().max())
                                    for k, r in zip(fk.KEYS, ref)),
-                **_busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))})
+                **busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))})
     for level, (a, _) in zip(("l1", "l2"), seen["accum"]):
         args = a[:4] + ("complete",) + a[5:]
-        res[f"k4_complete_{level}"] = _busy_ms(torch, lambda: msm3.accum(*args))
+        res[f"k4_complete_{level}"] = busy_ms(torch, lambda: msm3.accum(*args))
     seen, restore = _calls({"stage": (msm2, "stage")})
     try:
         witness_msm()
@@ -318,7 +318,7 @@ def _complete_adds(torch, fk, msm2, msm3, commit, witness_msm) -> dict:
     for label, (a, k) in zip(("first", "later"), seen["stage"]):
         tf, rounds, masks, pts = a[:4]
         live = k.get("live")
-        res[f"b6_complete_{label}"] = _busy_ms(
+        res[f"b6_complete_{label}"] = busy_ms(
             torch, lambda: msm2.stage(tf, rounds, masks, pts, "complete", live))
         res[f"b6_complete_{label}"]["lanes"] = int(masks.shape[1])
     return res
@@ -330,8 +330,6 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--key-cache", default=None)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--probe-only", action="store_true",
-                    help="stop after the registers, the probe and its SASS")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -362,41 +360,21 @@ def main(argv=None) -> int:
                stdout=subprocess.PIPE, text=True).stdout.strip()}
     res["registers_spills"] = _ptxas(_build)
     probe = _probe_lib(os.path.abspath(args.root), _build)
-    res["chain"] = _chain(torch, np, rng, tf, _build, probe)
+    res["chain"] = chain_probe(torch, np, rng, tf, _build, probe)
     res["product_loop_sass"] = _sass_loop(probe._name, "point_chain_kernelILi2E",
                                           _build._nvcc())
-    if args.probe_only:
-        return _emit(res, args.out)
     res["k1"] = _k1(torch, np, rng, fk, TField(pallas.scalar))
     # K2 on 2^15 random rows (every lane live) and K3 on 2^16 (the window
     # precompute's shape)
     P = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
     Q = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
-    res["k2_random_32768_device"] = _busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))
-    # and K2 against its plain version where lanes are the identity on
-    # either side or both, P = Q (the doubling) and P = -Q
-    C = {k: v[:4096].clone() for k, v in Q.items()}
-    for k in keys:
-        C[k][0:64] = P[k][0:64]
-        C[k][64:128] = P[k][64:128]
-    C["y"][64:128] = tf.neg(P["y"][64:128])
-    for k in ("zz", "zzz"):
-        C[k][128:256] = 0
-        C[k][384:512] = 0
-    Pc = {k: v[:4096].clone() for k, v in P.items()}
-    for k in ("zz", "zzz"):
-        Pc[k][256:512] = 0
-    ref = fk.xyzz_add_limbs(tf.ops("cuda"), tuple(Pc[k].long() for k in keys),
-                            tuple(C[k].long() for k in keys))
-    got = fk.xyzz_add(tf, Pc, C)
-    res["k2_cases_max_abs_err"] = max(int((got[k].long() - r).abs().max())
-                                      for k, r in zip(keys, ref))
+    res["k2_random_32768_device"] = busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))
     D = {k: _rand_rows(torch, np, rng, 1 << 16) for k in keys}
-    res["k3_65536_device"] = _busy_ms(torch, lambda: fk.xyzz_double(tf, D))
+    res["k3_65536_device"] = busy_ms(torch, lambda: fk.xyzz_double(tf, D))
     for nb in (1 << 15, 1 << 13):
         table = {k: _rand_rows(torch, np, rng, nb) for k in keys}
         res[f"bucket_reduce_{nb}_ms"] = _ms(torch, lambda: msm2._bucket_reduce(tf, table))
-        res[f"bucket_reduce_{nb}_device"] = _busy_ms(
+        res[f"bucket_reduce_{nb}_device"] = busy_ms(
             torch, lambda: msm2._bucket_reduce(tf, table))
 
     m, nb = 4096, 1 << 15
@@ -413,7 +391,7 @@ def main(argv=None) -> int:
             return msm3._take(msm3._suffix_segmented(tf, digs, vals),
                               *msm3._run_heads(digs, bs))
     res["suffix_4096_ms"] = _ms(torch, suffix)
-    res["suffix_4096_device"] = _busy_ms(torch, suffix)
+    res["suffix_4096_device"] = busy_ms(torch, suffix)
 
     ck = pedersen.CommitmentEngine.setup(pallas, b"bench-msm", N_COMMIT - 1, device="cuda")
     order = pallas.scalar.p
@@ -426,7 +404,7 @@ def main(argv=None) -> int:
     pedersen.CommitmentEngine.commit(ck, v)
     torch.cuda.synchronize()
     res["commit_launches"] = {k: c for k, c in _build.LAUNCHES.items() if c}
-    res["commit_device"] = _busy_ms(torch, lambda: pedersen.CommitmentEngine.commit(ck, v))
+    res["commit_device"] = busy_ms(torch, lambda: pedersen.CommitmentEngine.commit(ck, v))
     t0 = time.perf_counter()
     for _ in range(REPS):
         pedersen.CommitmentEngine.commit(ck, v)
@@ -436,16 +414,11 @@ def main(argv=None) -> int:
     res["complete_add"] = _complete_adds(
         torch, fk, msm2, msm3, lambda: pedersen.CommitmentEngine.commit(ck, v),
         lambda: msm2.msm_device2(scal, device_bases=db, reuse=True))
-    return _emit(res, args.out)
-
-
-def _emit(res: dict, out) -> int:
-    """Print the result as one JSON line and append it to `out`."""
     line = json.dumps(res)
     print(line)
-    if out:
-        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-        with open(out, "a") as fh:
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "a") as fh:
             fh.write(line + "\n")
     return 0
 
