@@ -363,9 +363,9 @@ bucket_reduce_kernel(const int32_t* __restrict__ tx, const int32_t* __restrict__
 // the bytes: the carries read once and the run totals written. One SM
 // moves them (each slice's first and last carries from rows E apart), which
 // keeps the kernel far above that bound: 0.089-0.090 ms on the commit's
-// 4,096 carries against 0.100 ms when each thread copied its own slice's
-// interior (nova_tpu_torch/perf/bucket_stage.py, NVIDIA H100 80GB HBM3,
-// 700.00 W). The adds that do occur are at most E - 1 + log2(S) + 1 deep.
+// 4,096 carries against 0.101-0.102 ms when each thread copied its own
+// slice's interior (nova_tpu_torch/perf/bucket_stage.py, NVIDIA H100 80GB
+// HBM3, 700.00 W). The adds that do occur are at most E - 1 + log2(S) + 1 deep.
 // The order of adds is msm3.suffix_to_buckets_plain's.
 constexpr int SUF_T = 256;
 
