@@ -25,6 +25,7 @@ result line):
    shapes (K1 at 2^20 elements of every field of fields/spec.py, most
    operands in [p, 2^256), with edge values and a one-row operand on
    either side; K2/K3 at 2^16 lanes with identity, P = Q and P = -Q lanes,
+   K3 with 1 and 16 chained doublings (a window's) and Y = 0 lanes too,
    and K2 on 2^16 random rows with identity lanes; K4 on the commit's
    sorted sequence (level 1: affine bases read through the sort
    permutation) and on its column carries (level 2: XYZZ), each in fast
@@ -35,12 +36,15 @@ result line):
    padding), compared bitwise (K4: the tail table, the carries and the
    flags);
 4. timing with CUDA events (median of 5 runs after warm-up): each
-   kernel and its plain version, K2 and K3 at the path's shapes (2^15
-   rows, one row); device ms under torch.profiler of K1 at its callers'
-   shapes (nova_tpu_torch/perf/bucket_stage.py::k1_shapes) and of K2 on
-   the 2^15-row adds, each beside its bound; the probe's chained product,
-   add and doubling (one warp, and the card's rate); and the msm3m
-   workload (sequential and batch-of-4 points/s);
+   kernel and its plain version, K2 and K3 at the path's shapes (K2 on
+   2^15 rows, K3 on a window of the key's precompute: 2^16 rows x 16
+   doublings, and each on one row); device ms under torch.profiler of K1
+   at its callers' shapes (nova_tpu_torch/perf/bucket_stage.py::k1_shapes),
+   of K2 on the 2^15-row adds and of K3 on the window, each beside its
+   bound; the commit key's window precompute, wall and device-busy ms;
+   the probe's chained product, add and doubling (one warp, and the
+   card's rate); and the msm3m workload (sequential and batch-of-4
+   points/s);
 5. the fold step: PublicParams.setup(Pallas, Vesta, a squaring chain of
    2^17 - 9,818 constraints) on CUDA, then RecursiveSNARK.new, 5
    prove_steps (the bump, the tape build, 3 timed replays, split by the
@@ -52,9 +56,10 @@ result line):
    its plain version on the stage inputs of that commit (bitwise, equal
    flags) and timed; K1-K5 and K2s against their plain versions on the
    inputs the fold step gives them (bitwise): K1/K3 in the witness key's
-   window precompute, K5 in the bucket reduction of msm_device2 (timed at
-   its 2^13 buckets), K4, K2s and K2 in the commit of the running witness,
-   K1 in the cross-term's SpMV; the
+   window precompute (K3 timed there at 2^17 rows x 14 doublings, and the
+   key's whole precompute, wall and device-busy), K5 in the bucket
+   reduction of msm_device2 (timed at its 2^13 buckets), K4, K2s and K2 in
+   the commit of the running witness, K1 in the cross-term's SpMV; the
    device cross-term commit_T_device (plain and relaxed) on the padded
    square primary shape against T computed on the host; msm_device2 timed
    at the witness size and on the msm3m key and scalars; and a
@@ -72,13 +77,15 @@ result line):
    commit (msm_device2) against the native host MSM;
 8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
    ITERS = 20) with the counts reset just before and read just after; P1
-   and P2 against their plain versions (bitwise) and timed beside their
-   bounds.
+   and P2 (one kernel, two limb layouts) against their plain versions
+   (bitwise) and timed beside their bound: one Montgomery product per
+   column and step.
 
-After the phases, launches per call are checked: K3 (a key's window
-precompute only) must not launch in a commit, a replayed prove_step, an
-msm_device2 or a compression, and a commit must launch K2 twice, K5 once
-and K2s once.
+After the phases, launches are checked: K3 (a key's window precompute
+only) must not launch in a commit, a replayed prove_step, an msm_device2
+or a compression, and must launch once a window in each key's precompute
+(16 for the commit key, 19 for the witness key); a commit must launch K2
+twice, K5 once and K2s once.
 
 The last lines are the card's name and power limit, one JSON object
 {"kernels": [...]} and {"ok": true, "device": {...}}.
@@ -148,10 +155,6 @@ COMMIT_XYZZ_ADDS = 2
 UBENCH_KERNELS = ("mont16_chain", "mont8_chain")
 # phase 8 sizes: perf/ubench_field.py's defaults (N = 2^18, ITERS = 20)
 UB_LOG_N, UB_ITERS, REHEARSE_UB_LOG_N, REHEARSE_UB_ITERS = 18, 20, 10, 2
-# 32-bit multiplies (each feeding an add) per column per chained product:
-# 16 x 16 limb products + 16 (m) + 16 + 16 x 15 (m * p) in radix 2^16,
-# 32 x 32 + 32 + 32 + 32 x 31 in radix 2^8 (the TPU bodies)
-UB_MULS = {"mont16_chain": 528, "mont8_chain": 2080}
 # constraints of the primary augmented circuit around a trivial step
 # circuit (tests/test_ivc.py); the squaring chain adds one per square
 AUGMENTED_PRIMARY_CONS = 9818
@@ -207,15 +210,22 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int):
     """Device-busy ms of a call of fn that launches each of its kernels
-    (and fills and copies) once, under torch.profiler, after one warm-up;
-    the host clock in a --rehearse run, which has no card."""
+    (and fills and copies) once, under torch.profiler, after one warm-up
+    (None where three profiler windows kept no device event); the host
+    clock in a --rehearse run, which has no card."""
     if not torch.cuda.is_available():
         return cuda_ms(torch, fn, reps)
     from nova_tpu_torch.perf.bucket_stage import busy_ms
 
-    return busy_ms(torch, fn, reps)["once_ms"]
+    # the profiler now and then keeps none of a window's device events
+    for _ in range(3):
+        ms = busy_ms(torch, fn, reps)["once_ms"]
+        if ms:
+            return ms
+    log("device_ms: the profiler recorded no device time in 3 windows (not measured)")
+    return None
 
 
 def bound(nbytes: float, ops: float):
@@ -318,9 +328,9 @@ def kernel_vs_plain(torch, name: str, args) -> int:
         ref = fk.xyzz_add_limbs(o, limbs(P), limbs(Q))
         return max_abs_err(torch, fk.xyzz_add(tf, P, Q), dict(zip(fk.KEYS, ref)))
     if name == "xyzz_double":
-        _, P = args
-        ref = fk.xyzz_double_limbs(o, limbs(P))
-        return max_abs_err(torch, fk.xyzz_double(tf, P), dict(zip(fk.KEYS, ref)))
+        _, P, *times = args  # times: 1 unless given
+        ref = fk.xyzz_double_limbs(o, limbs(P), *times)
+        return max_abs_err(torch, fk.xyzz_double(tf, P, *times), dict(zip(fk.KEYS, ref)))
     if name == "bucket_reduce":
         _, table = args[:2]
         return max_abs_err(torch, msm2._bucket_reduce(tf, table),
@@ -447,11 +457,37 @@ def suffix_bound(torch, digs, nb: int):
     return bound(d.numel() * (4 + 4 * ROW) + written * 4 * ROW, MUL_OPS * 14 * repeat)
 
 
+def double_bound(P: dict, times: int):
+    """K3's least time for `times` chained doublings of these rows: 8 rows
+    of 64 B moved per lane once for the whole chain, or 9 products per
+    doubling of each live lane (a point of a prime-order group does not
+    reach the identity by doubling, so each live lane of a key's bases
+    needs all of them)."""
+    rows = P["zz"].shape[0]
+    live = int(P["zz"].ne(0).any(-1).sum())
+    return bound(8 * ROW * rows, MUL_OPS * 9 * times * live)
+
+
 def add_bound(P: dict, Q: dict, rows: int):
     """K2's least time on these rows: 12 rows of 64 B moved per lane, or
     14 products per lane whose operands are both live."""
     live = int((P["zz"].ne(0).any(-1) & Q["zz"].ne(0).any(-1)).sum())
     return bound(12 * ROW * rows, MUL_OPS * 14 * live)
+
+
+def precompute_ms(torch, fn) -> dict:
+    """A key's window precompute (fn): wall ms of one call on the host
+    clock up to a synchronise, and its device-busy ms under torch.profiler
+    (one call after a warm-up)."""
+    from nova_tpu_torch.perf.bucket_stage import busy_ms
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = busy_ms(torch, fn, 1)
+    return {"wall_ms": wall, "busy_ms": prof["busy_ms"],
+            "profiled_wall_ms": prof["wall_ms"]}
 
 
 def launch_delta(_build, before: dict) -> dict:
@@ -677,6 +713,25 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
              "plain_ms": cuda_ms(torch, lambda: msm2.bucket_reduce_plain(tf5, table5), 1),
              "bound": bucket_reduce_bound(table5["x"].shape[0])}
     log("K5 on msm_device2's table: " + json.dumps(k5_d2))
+    # K3 on the witness key's last window (c chained doublings of its rows,
+    # the precompute's own input) and the key's whole window precompute,
+    # wall and device-busy. The window is timed by CUDA events around 8
+    # launches back to back (each takes longer on the card than its host
+    # enqueue, so the events see the device's time): torch.profiler kept
+    # no device event of this call here in two card runs.
+    tfw, pw, times = seen["xyzz_double"]
+    rows_w = int(pw["x"].shape[0])
+    k3_window = {f"{rows_w} rows x {times}, events over 8 launches": (
+        cuda_ms(torch, lambda: [fk.xyzz_double(tfw, pw, times) for _ in range(8)], reps) / 8,
+        double_bound(pw, times))}
+    precompute_t = {}
+    if not args.rehearse:
+        bx, by, binf = msm2._sized(fresh, rows_w)
+        Ww = msm2._num_windows2(times)
+        precompute_t = precompute_ms(
+            torch, lambda: msm2._precompute_shifted(tfw, times, Ww, bx, by, binf))
+    log(f"K3 at the witness key's window (ms, (bound ms, by)): {json.dumps(k3_window)}; "
+        f"the witness key's window precompute: {json.dumps(precompute_t)}")
 
     # msm_device2 at the witness size and on the msm3m key and scalars
     msm2_t = {}
@@ -718,6 +773,8 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
         "fold_launches": launches, "kernel_errs": kernel_errs, "commit_T_ms": t_ms,
         "k5_msm_device2": k5_d2,
         "msm_device2_launches": warm, "witness_precompute_launches": precompute,
+        "k3_window": k3_window, "witness_precompute_ms": precompute_t,
+        "witness_window": times,
         "pp": pp, "rs": rs,
     }
 
@@ -929,11 +986,12 @@ def field_ubench(args, torch, dev) -> dict:
         ref = ub.mont_chain_plain(a, b, iters, bits)
         err = int((got.long() - ref.long()).abs().max().item())
         ms = cuda_ms(torch, lambda: fn(a, b, iters), reps)
-        b_ms, b_by = bound(3 * a.numel() * 4, UB_MULS[name] * n * iters)
+        # one Montgomery product per column and step, in either radix
+        b_ms, b_by = bound(3 * a.numel() * 4, MUL_OPS * n * iters)
         rows[name] = {
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": cuda_ms(torch, lambda: ub.mont_chain_plain(a, b, iters, bits), 1),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
             "melem_per_s": n * iters / (ms / 1e3) / 1e6,
         }
     log("P1/P2: " + json.dumps(rows))
@@ -1103,10 +1161,16 @@ def run(args) -> dict:
                             tuple(RQ[k].long() for k in fk.KEYS))
     errs["xyzz_add"] = max(errs["xyzz_add"],
                            max_abs_err(torch, fk.xyzz_add(bf, RP, RQ), dict(zip(fk.KEYS, ref))))
+    # K3 with one and with c chained doublings (a window's) on those rows:
+    # identity lanes (8-16, 32-40) and Y = 0 lanes (40-48), whose ZZ becomes
+    # 0 at the first doubling, after which every step copies them
     D = {k: t.clone() for k, t in Q.items()}
-    got = fk.xyzz_double(bf, D)
-    ref = fk.xyzz_double_limbs(o, tuple(D[k].long() for k in fk.KEYS))
-    errs["xyzz_double"] = max_abs_err(torch, got, dict(zip(fk.KEYS, ref)))
+    D["y"][40:48] = 0
+    errs["xyzz_double"] = 0
+    for times in (1, c):
+        ref = fk.xyzz_double_limbs(o, tuple(D[k].long() for k in fk.KEYS), times)
+        errs["xyzz_double"] = max(errs["xyzz_double"], max_abs_err(
+            torch, fk.xyzz_double(bf, D, times), dict(zip(fk.KEYS, ref))))
 
     W = msm3._windows_for(c, pallas.scalar.p)
     sorted_d, st = msm3._prep_mont(db, v.m, c, W)
@@ -1227,12 +1291,14 @@ def run(args) -> dict:
         cuda_ms(torch, lambda: fk.xyzz_add_limbs(o, Pl, Ql), max(1, reps // 2)),
         bound(12 * ROW * L, add_ops),
     )
-    n_live = int((~D["zz"].eq(0).all(-1)).sum())
-    Dl = tuple(D[k].long() for k in fk.KEYS)
+    # K3 at the window precompute's shape: one launch of c chained
+    # doublings of the key's bases
+    KB = {"x": fx[:L], "y": fy[:L], "zz": one, "zzz": one}
+    KBl = tuple(KB[k].long() for k in fk.KEYS)
     timed["xyzz_double"] = (
-        cuda_ms(torch, lambda: fk.xyzz_double(bf, D), reps),
-        cuda_ms(torch, lambda: fk.xyzz_double_limbs(o, Dl), max(1, reps // 2)),
-        bound(8 * ROW * L, MUL_OPS * 9 * n_live),
+        cuda_ms(torch, lambda: fk.xyzz_double(bf, KB, c), reps),
+        cuda_ms(torch, lambda: fk.xyzz_double_limbs(o, KBl, c), 1),
+        double_bound(KB, c),
     )
     timed["accum"] = (
         cuda_ms(torch, lambda: msm3.accum(*k4_l1), reps),
@@ -1251,8 +1317,9 @@ def run(args) -> dict:
         suffix_bound(torch, k2s_in[1], nb),
     )
     # K2 and K3 at the shapes the main path launches them: K2 on the
-    # 2^15-row adds of _bucket_totals, and K2/K3 on one row (one add's and
-    # one doubling's latency); K3's precompute shape is the 2^16 rows above
+    # 2^15-row adds of _bucket_totals, K3 on a window of the key's
+    # precompute (2^16 rows, c doublings; phase 6 adds the witness key's),
+    # and K2/K3 on one row (one add's and one doubling's latency)
     _, kp, kq = k2_in
     P1 = {k: t[40:41] for k, t in P.items()}
     Q1 = {k: t[40:41] for k, t in Q.items()}
@@ -1268,12 +1335,23 @@ def run(args) -> dict:
                       add_bound(P1, Q1, 1)),
         },
         "xyzz_double": {
+            f"{L} rows x {c}, device ms": (
+                device_ms(torch, lambda: fk.xyzz_double(bf, KB, c), reps), double_bound(KB, c)),
             "1 row": (cuda_ms(torch, lambda: fk.xyzz_double(bf, P1), reps),
                       bound(8 * ROW, MUL_OPS * 9)),
         },
     }
     log("K2/K3 at the path's shapes (ms, (bound ms, by)): " + json.dumps(
         {k: v for k, v in path_shapes.items() if k != "mont_mul"}))
+    # the commit key's window precompute (K3 once a window, K1 in the
+    # batched inversions), wall and device-busy
+    precompute = {}
+    if not args.rehearse:
+        bx, by, binf = msm2._sized(db, n_pad)
+        Wc = msm2._num_windows2(c)
+        precompute["commit_key"] = precompute_ms(
+            torch, lambda: msm2._precompute_shifted(bf, c, Wc, bx, by, binf))
+        log("the commit key's window precompute: " + json.dumps(precompute["commit_key"]))
 
     _build.reset_launches()
     CommitmentEngine.commit(ck, v)
@@ -1296,7 +1374,7 @@ def run(args) -> dict:
         "pipelined_pts_per_s": 4 * n / statistics.median(bat_s),
         "launches_per_msm": per_msm,
         "precompute_launches": {k: first_commit[k] - per_msm[k] for k in per_msm},
-        "path_shapes": path_shapes, "chain": chain,
+        "path_shapes": path_shapes, "chain": chain, "precompute_ms": precompute,
     }
     log("msm3m: " + json.dumps(msm))
     if args.profile:
@@ -1319,6 +1397,15 @@ def run(args) -> dict:
         k3 = {k: v["xyzz_double"] for k, v in per_call.items() if v["xyzz_double"]}
         if k3:
             raise PhaseError(f"K3 launched per call (0 expected on every path): {k3}")
+        # and once a window in a key's precompute: 16 windows after the
+        # first at the commit key's c = 16, 19 at the witness key's c = 14
+        k3_pre = {"commit_key": msm["precompute_launches"]["xyzz_double"],
+                  "witness_key": fold["witness_precompute_launches"]["xyzz_double"]}
+        want_pre = {"commit_key": msm2._num_windows2(c) - 1,
+                    "witness_key": msm2._num_windows2(fold["witness_window"]) - 1}
+        if k3_pre != want_pre:
+            raise PhaseError(f"K3 launches in the window precompute {k3_pre}, "
+                             f"expected one a window {want_pre}")
         commit = msm["launches_per_msm"]
         want = {"xyzz_add": COMMIT_XYZZ_ADDS, "bucket_reduce": 1, "suffix_segmented": 1}
         if any(commit[k] != v for k, v in want.items()):
@@ -1331,7 +1418,8 @@ def run(args) -> dict:
             row = dict(fold["row"])
         elif name in UBENCH_KERNELS:
             row = {k: ubench["rows"][name][k] for k in
-                   ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                   ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_share")}
         else:
             ms, plain_ms, (b_ms, b_by) = timed[name]
             err = max(errs.get(name, 0), fold["kernel_errs"].get(name, 0),
@@ -1346,9 +1434,14 @@ def run(args) -> dict:
             if name == "mont_mul":
                 row["chain"] = msm["chain"]
             if name in msm["path_shapes"]:
+                shapes = dict(msm["path_shapes"][name])
+                if name == "xyzz_double":
+                    shapes.update(fold["k3_window"])
+                    row["precompute_ms"] = {"commit_key": msm["precompute_ms"].get("commit_key"),
+                                            "witness_key": fold["witness_precompute_ms"]}
                 row["path_shape_ms"] = {
                     shape: {"ms": t, "bound_ms": b[0], "bound_by": b[1]}
-                    for shape, (t, b) in msm["path_shapes"][name].items()}
+                    for shape, (t, b) in shapes.items()}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], **row, "library_ms": None,

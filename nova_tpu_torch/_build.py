@@ -27,7 +27,8 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
-SOURCES = ("field_kernels.cu", "msm_kernels.cu", "stage_kernel.cu", "ubench_kernels.cu")
+SOURCES = ("field_kernels.cu", "msm_kernels.cu", "stage_kernel.cu", "ubench_kernels.cu",
+           "chain_probe.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,14 +59,14 @@ _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "nt_mont_mul": [_vp, _vp, _vp, _i64, _i32, _i32, _vp, _vp],
     "nt_xyzz_add": [_vp] * 12 + [_i64, _vp, _vp],
-    "nt_xyzz_double": [_vp] * 8 + [_i64, _vp, _vp],
+    "nt_xyzz_double": [_vp] * 8 + [_i64, _i32, _vp, _vp],
     "nt_accum": [_i32, _i32, _vp, _i64] + [_vp] * 10 + [_i32] + [_vp] * 5
                 + [_i32, _i32, _vp, _vp],
     "nt_bucket_reduce": [_vp] * 10 + [_i32, _i32, _vp, _vp],
     "nt_suffix_buckets": [_vp] * 5 + [_i32, _i32] + [_vp] * 4 + [_i32, _vp, _vp],
     "nt_stage": [_i32, _i32] + [_vp] * 11 + [_i64, _i32, _vp, _vp],
-    "nt_mont16_chain": [_vp, _vp, _vp, _i64, _i32, _vp],
-    "nt_mont8_chain": [_vp, _vp, _vp, _i64, _i32, _vp],
+    "nt_mont16_chain": [_vp, _vp, _vp, _i64, _i32, _vp, _vp],
+    "nt_mont8_chain": [_vp, _vp, _vp, _i64, _i32, _vp, _vp],
     "nt_chain_probe": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp, _vp],
 }
 

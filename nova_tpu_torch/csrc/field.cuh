@@ -1,6 +1,7 @@
 // 256-bit Montgomery field arithmetic and XYZZ point formulas shared by
 // every kernel of the port (field_kernels.cu: K1-K3, msm_kernels.cu: K4,
-// K5 and K2s, stage_kernel.cu: B6, ubench_kernels.cu: the latency probe).
+// K5 and K2s, stage_kernel.cu: B6, ubench_kernels.cu: P1/P2 and the latency
+// probe).
 //
 // Public layout (the JAX package's): an element is 16 int32 lanes, each a
 // 16-bit limb, little-endian, in Montgomery form with R = 2^256. Inside a
@@ -296,7 +297,11 @@ __device__ __forceinline__ void redc_row(uint32_t ev[NW], uint32_t od[NW], uint3
   x = ptx::addc(x, 0u);
 }
 
-__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts& fc) {
+// LAZY: the product's lazy ending, T mod 2^256 with no subtract and the
+// carry word dropped (the field microbenchmark's chains, P1/P2); fe_mul and
+// fe_mul_lazy below.
+template <bool LAZY>
+__device__ __forceinline__ Fe fe_mul_t(const Fe& a, const Fe& b, const FieldConsts& fc) {
   uint32_t u[NW], v[NW], x = 0u;
   mul_row0(u, v, a, b.w[0]);
   redc_row(u, v, x, fc);
@@ -316,7 +321,26 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts
 #pragma unroll
   for (int j = 1; j < NW - 1; j++) t[j] = ptx::addc_cc(u[j], v[j + 1]);
   t[NW - 1] = ptx::addc_cc(u[NW - 1], 0u);
-  return fe_cond_sub(t, ptx::addc(x, 0u), fc);
+  if constexpr (LAZY) {
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < NW; k++) r.w[k] = t[k];
+    return r;
+  } else {
+    return fe_cond_sub(t, ptx::addc(x, 0u), fc);
+  }
+}
+
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts& fc) {
+  return fe_mul_t<false>(a, b, fc);
+}
+
+// T mod 2^256 for T = (a*b + m*p) / 2^256: fe_mul without its subtract and
+// without the carry out of the top. It is what perf/ubench_field.py's TPU
+// bodies compute in radix 2^16 and 2^8, since m is the unique value below
+// 2^256 whatever radix its digits are found in.
+__device__ __forceinline__ Fe fe_mul_lazy(const Fe& a, const Fe& b, const FieldConsts& fc) {
+  return fe_mul_t<true>(a, b, fc);
 }
 
 // -- XYZZ points (a = 0), the formulas of nova_tpu/ops/msm2.py ----------------

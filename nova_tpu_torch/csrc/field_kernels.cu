@@ -150,18 +150,37 @@ xyzz_add_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
   pt_store(ox, oy, ozz, ozzz, j, xyzz_add_live(P, Q, fc));
 }
 
-// K3 replaces pallas_kernels.py::_xyzz_double_call (dbl-2008-s-1, a = 0).
-// Bound: near the balance point (9 products against 512 B moved); one read
-// and one write per coordinate, intermediates in registers.
-__global__ void __launch_bounds__(128)
+// K3 replaces pallas_kernels.py::_xyzz_double_call (dbl-2008-s-1, a = 0),
+// with `times` chained doublings in one launch: a key's window precompute
+// doubles every base c times a window (ops/msm2.py::_precompute_shifted),
+// and one launch a window loads each row once, runs the c doublings in
+// registers and stores once, where c launches of one doubling moved the
+// row in and out c times. Bound on this card: operations (9 products a
+// doubling, 2,376 multiply-adds, against 512 B a row for the whole chain).
+// Every step keeps the identity test, so a row whose ZZ reaches 0 midway
+// (Y = 0) is copied by the steps after it, as `times` launches of one
+// doubling would leave it: the output is theirs bit for bit. One thread a
+// row: 2^16 rows make 512 blocks of 128 threads, 3 or 4 an SM, so no SM
+// holds more than 16 warps, the least that any split of 2,048 warps over
+// 132 SMs allows; at most 128 registers (it takes 128, no spills) keep
+// four such blocks resident. On NVIDIA H100 80GB HBM3, 700.00 W
+// (nova_tpu_torch/perf/bucket_stage.py, device time) a window takes
+// 0.181 ms at 2^16 rows x 16 doublings against its 0.149 ms bound, and
+// 0.309 ms at 2^17 x 14 against 0.261 ms, where one launch a doubling took
+// 0.330-0.333 and 0.428-0.440 ms.
+constexpr int DBL_T = 128;
+
+__global__ void __launch_bounds__(DBL_T, 4)
 xyzz_double_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                    const int32_t* __restrict__ pzz, const int32_t* __restrict__ pzzz,
                    int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                    int32_t* __restrict__ ozz, int32_t* __restrict__ ozzz, int64_t n,
-                   FieldConsts fc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+                   int times, FieldConsts fc) {
+  const int64_t i = (int64_t)blockIdx.x * DBL_T + threadIdx.x;
   if (i >= n) return;
-  pt_store(ox, oy, ozz, ozzz, i, xyzz_double(pt_load(px, py, pzz, pzzz, i), fc));
+  Pt P = pt_load(px, py, pzz, pzzz, i);
+  for (int k = 0; k < times; k++) P = xyzz_double(P, fc);
+  pt_store(ox, oy, ozz, ozzz, i, P);
 }
 
 inline unsigned blocks_for(int64_t n, int threads) {
@@ -205,14 +224,16 @@ int nt_xyzz_add(const void* px, const void* py, const void* pzz, const void* pzz
   return (int)cudaGetLastError();
 }
 
+// `times` >= 1 chained doublings of each row
 int nt_xyzz_double(const void* px, const void* py, const void* pzz, const void* pzzz,
-                   void* ox, void* oy, void* ozz, void* ozzz, int64_t n,
+                   void* ox, void* oy, void* ozz, void* ozzz, int64_t n, int times,
                    const uint32_t* consts, void* stream) {
+  if (times < 1) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  xyzz_double_kernel<<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+  xyzz_double_kernel<<<blocks_for(n, DBL_T), DBL_T, 0, (cudaStream_t)stream>>>(
       (const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz,
       (const int32_t*)pzzz, (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz,
-      (int32_t*)ozzz, n, load_consts(consts));
+      (int32_t*)ozzz, n, times, load_consts(consts));
   return (int)cudaGetLastError();
 }
 

@@ -40,9 +40,10 @@ def xyzz_from_affine(tf: TField, x, y, inf) -> dict:
     return xyzz_select(tf, ~inf, p, xyzz_zero(tf, x))
 
 
-def xyzz_double(tf: TField, p: dict) -> dict:
-    """dbl-2008-s-1 (a = 0), masked for identity (kernel K3)."""
-    return kernels.xyzz_double(tf, p)
+def xyzz_double(tf: TField, p: dict, times: int = 1) -> dict:
+    """dbl-2008-s-1 (a = 0), masked for identity, `times` times in one
+    launch (kernel K3)."""
+    return kernels.xyzz_double(tf, p, times)
 
 
 def xyzz_add(tf: TField, p: dict, q: dict) -> dict:

@@ -249,9 +249,15 @@ def affine_add_limbs_fast(o: LimbOps, P, Q):
     return out, o.is_zero(pd) & ~p_zero & ~q_zero
 
 
-def xyzz_double_limbs(o: LimbOps, P):
+def xyzz_double_limbs(o: LimbOps, P, times: int = 1):
     """XYZZ doubling dbl-2008-s-1, a = 0, identity-masked
-    (msm2._xyzz_double_limbs; plain K3)."""
+    (msm2._xyzz_double_limbs), applied `times` times (plain K3)."""
+    for _ in range(times):
+        P = _xyzz_double_once(o, P)
+    return P
+
+
+def _xyzz_double_once(o: LimbOps, P):
     X1, Y1, ZZ1, ZZZ1 = P
     u = o.dbl(Y1)
     v = o.mul(u, u)
@@ -354,14 +360,16 @@ def xyzz_add(tf, p: dict, q: dict) -> dict:
     return {k: v.view(shape) for k, v in zip(KEYS, outs)}
 
 
-def xyzz_double(tf, p: dict) -> dict:
-    """K3: XYZZ doubling (identity maps to itself) on a dict of (..., 16)
-    int32 coordinates."""
+def xyzz_double(tf, p: dict, times: int = 1) -> dict:
+    """K3: `times` chained XYZZ doublings (the identity maps to itself at
+    every step) on a dict of (..., 16) int32 coordinates, in one launch."""
+    if times < 1:
+        raise ValueError(f"times must be at least 1, got {times}")
     ins = [p[k] for k in KEYS]
     shape = torch.broadcast_shapes(*(t.shape for t in ins))
     if not on_cuda(*ins):
         o = tf.ops(ins[0].device)
-        res = xyzz_double_limbs(o, tuple(t.long() for t in ins))
+        res = xyzz_double_limbs(o, tuple(t.long() for t in ins), times)
         return {k: v.expand(shape).to(torch.int32) for k, v in zip(KEYS, res)}
     rows = [_rows(t, shape) for t in ins]
     outs = [torch.empty_like(rows[0]) for _ in KEYS]
@@ -370,7 +378,7 @@ def xyzz_double(tf, p: dict) -> dict:
         with torch.cuda.device(rows[0].device):
             err = _build.lib().nt_xyzz_double(
                 *(t.data_ptr() for t in rows), *(t.data_ptr() for t in outs),
-                n, tf.consts_ptr, _build.stream_of(rows[0]),
+                n, times, tf.consts_ptr, _build.stream_of(rows[0]),
             )
             _build.check(err, "xyzz_double")
             _build.LAUNCHES["xyzz_double"] += 1

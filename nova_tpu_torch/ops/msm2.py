@@ -156,16 +156,16 @@ def _negate_y(tf: TField, y):
 def _precompute_shifted(tf: TField, c: int, W: int, bx, by, binf):
     """Affine shifted bases for the fixed-base MSM: window w holds
     2^(c*w) * B_i for every base. Returns (W*n, 16) x/y rows (Montgomery)
-    and (W*n,) inf flags: per window c doublings (K3), then one batched
-    inversion over [zz; zzz] (K1). Run once per (key, size) and cached."""
+    and (W*n,) inf flags: per window one K3 launch of c chained doublings,
+    then one batched inversion over [zz; zzz] (K1). Run once per (key,
+    size) and cached."""
     n = bx.shape[0]
     one = tf.one_mont(bx)
     zz0 = torch.where(binf[:, None], torch.zeros_like(bx), one)
     pts = {"x": bx, "y": by, "zz": zz0, "zzz": zz0}
     xs, ys, infs = [bx], [by], [binf]
     for _ in range(W - 1):
-        for _ in range(c):
-            pts = xyzz_double(tf, pts)
+        pts = xyzz_double(tf, pts, c)
         both = torch.cat([pts["zz"], pts["zzz"]], dim=0)
         pad = _next_pow2(both.shape[0]) - both.shape[0]
         if pad:

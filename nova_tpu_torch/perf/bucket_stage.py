@@ -1,12 +1,15 @@
-"""Time the field product, K1 and K2, and the fixed-base MSM's bucket stage
-after K4 on one GPU. First the Montgomery product (``fe_mul``): a chain of
-products on one warp and the card's rate (probe mode 2), K1's device time
-at the shapes its callers give it (the 2^20-row check, the commit's
-``from_mont`` of its 2^16 scalars, the fold step's ``FVec.axpy`` at 2^17,
-the SpMV product over 2^17 nonzeros, the device outer sumcheck's round
-products and its bind at 2^17), each against its plain version, K2 on
-2^15 random rows and K3 on 2^16, and every kernel's registers and spills
-(``ptxas.log``). Then the whole
+"""Time the field product, K1, K2, K3 and P1/P2, and the fixed-base MSM's
+bucket stage after K4 on one GPU. First the Montgomery product
+(``fe_mul``): a chain of products on one warp and the card's rate (probe
+mode 2), K1's device time at the shapes its callers give it (the 2^20-row
+check, the commit's ``from_mont`` of its 2^16 scalars, the fold step's
+``FVec.axpy`` at 2^17, the SpMV product over 2^17 nonzeros, the device
+outer sumcheck's round products and its bind at 2^17), each against its
+plain version, K2 on 2^15 random rows, P1 and P2 at the microbenchmark's
+2^18 x 20, and every kernel's registers and spills (``ptxas.log``). K3 on
+one window of a key's window precompute and the whole precompute, wall
+and device-busy, at the 2^16 commit key's shape (16 doublings a window)
+and the 2^17 witness key's (14). Then the whole
 weighted bucket reduction (``msm2._bucket_reduce``) at 2^15 buckets (a
 2^16 commit) and 2^13 (``msm_device2`` at a 2^17 witness), the suffix pass
 of the bucket totals over 4,096 column-end carries (the commit's level 3),
@@ -17,7 +20,7 @@ level-2 carries, B6 in complete mode on the first two stages of a 2^16
 ``msm_device2``), and the latency of one complete add (``xyzz_add``), one
 doubling and one product: a chain of them on one warp, and the card's rate
 with 256 threads on each SM (the probe ``nt_chain_probe`` in
-``csrc/ubench_kernels.cu``), with the SASS instruction count of the
+``csrc/chain_probe.cu``), with the SASS instruction count of the
 product's chain loop.
 
     python3 nova_tpu_torch/perf/bucket_stage.py [--root DIR] [--label NAME]
@@ -25,7 +28,7 @@ product's chain loop.
 
 ``--root`` (default: this checkout) imports ``nova_tpu_torch`` from another
 checkout of the repository, so two versions can be timed on one card. The
-probe is this checkout's ``csrc/ubench_kernels.cu`` built with nvcc against
+probe is this checkout's ``csrc/chain_probe.cu`` built with nvcc against
 the ``field.cuh`` of ``--root`` (into this checkout's ``_build/``), so both
 versions run the same probe around their own product. K2's row reports
 the share of the commit's add lanes whose operands are both live. Each
@@ -111,13 +114,13 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _probe_lib(root: str, _build):
-    """This checkout's csrc/ubench_kernels.cu built against the field.cuh of
+    """This checkout's csrc/chain_probe.cu built against the field.cuh of
     the checkout at `root`, loaded with ctypes (built once per pair)."""
     import ctypes
     import hashlib
     import shutil
 
-    src = os.path.join(_HERE, "..", "csrc", "ubench_kernels.cu")
+    src = os.path.join(_HERE, "..", "csrc", "chain_probe.cu")
     hdr = os.path.join(root, "nova_tpu_torch", "csrc", "field.cuh")
     h = hashlib.sha256()
     for f in (src, hdr):
@@ -132,7 +135,7 @@ def _probe_lib(root: str, _build):
         subprocess.run(
             [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-Xcompiler", "-fPIC", "-shared",
-             os.path.join(out, "ubench_kernels.cu"), "-o", so], check=True)
+             os.path.join(out, "chain_probe.cu"), "-o", so], check=True)
     lib = ctypes.CDLL(so)
     lib.nt_chain_probe.argtypes = _build._SIGNATURES["nt_chain_probe"]
     lib.nt_chain_probe.restype = ctypes.c_int
@@ -324,6 +327,64 @@ def _complete_adds(torch, fk, msm2, msm3, commit, witness_msm) -> dict:
     return res
 
 
+def _ubench(torch) -> dict:
+    """P1 and P2 at the microbenchmark's 2^18 columns x 20 products: CUDA
+    events around the call and device-busy ms."""
+    from nova_tpu_torch.perf import ubench_field as ub
+
+    t = ub.inputs(1 << 18, device="cuda")
+    res = {}
+    for name, a, b in (("mont16_chain", t["a16"], t["b16"]), ("mont8_chain", t["a8"], t["b8"])):
+        fn = getattr(ub, name)
+        res[name] = {"ms": _ms(torch, lambda: fn(a, b, 20)),
+                     **busy_ms(torch, lambda: fn(a, b, 20))}
+    return res
+
+
+def _windows(torch, fk, msm2, curve, tf, db) -> dict:
+    """K3 on one window of a key's precompute and the key's whole window
+    precompute (K3 and the batched inversions' K1), at the 2^16 commit
+    key's shape (window 16) and the 2^17 witness key's (window 14; its
+    bases here are the commit key's and their negatives, the same work).
+    K3 takes the window's c doublings in one launch where the version has
+    a `times` argument, else in c launches. Device-busy ms under the
+    profiler ("once_ms" of K3: one launch) and the precompute's wall ms."""
+    import inspect
+
+    chained = "times" in inspect.signature(fk.xyzz_double).parameters
+    wide = msm2.DeviceBases2.from_tensors(
+        curve, torch.cat([db.x, db.x]), torch.cat([db.y, msm2._negate_y(tf, db.y)]),
+        torch.cat([db.inf, db.inf]))
+    res = {"k3_one_launch_a_window": chained}
+    for label, bases, c in (("commit_key_65536", db, 16), ("witness_key_131072", wide, 14)):
+        bx, by, binf = msm2._sized(bases, bases.n)
+        one = tf.one_mont(bx)
+        pts = {"x": bx, "y": by, "zz": one, "zzz": one}
+
+        def window():
+            if chained:
+                return fk.xyzz_double(tf, pts, c)
+            p = pts
+            for _ in range(c):
+                p = fk.xyzz_double(tf, p)
+            return p
+
+        W = msm2._num_windows2(c)
+
+        def precompute():
+            return msm2._precompute_shifted(tf, c, W, bx, by, binf)
+
+        precompute()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        precompute()
+        torch.cuda.synchronize()
+        res[label] = {"rows": int(bases.n), "window": c, "k3_window": busy_ms(torch, window),
+                      "precompute_wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "precompute_device": busy_ms(torch, precompute, 1)}
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -364,13 +425,11 @@ def main(argv=None) -> int:
     res["product_loop_sass"] = _sass_loop(probe._name, "point_chain_kernelILi2E",
                                           _build._nvcc())
     res["k1"] = _k1(torch, np, rng, fk, TField(pallas.scalar))
-    # K2 on 2^15 random rows (every lane live) and K3 on 2^16 (the window
-    # precompute's shape)
+    # K2 on 2^15 random rows (every lane live)
     P = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
     Q = {k: _rand_rows(torch, np, rng, 1 << 15) for k in keys}
     res["k2_random_32768_device"] = busy_ms(torch, lambda: fk.xyzz_add(tf, P, Q))
-    D = {k: _rand_rows(torch, np, rng, 1 << 16) for k in keys}
-    res["k3_65536_device"] = busy_ms(torch, lambda: fk.xyzz_double(tf, D))
+    res["ubench"] = _ubench(torch)
     for nb in (1 << 15, 1 << 13):
         table = {k: _rand_rows(torch, np, rng, nb) for k in keys}
         res[f"bucket_reduce_{nb}_ms"] = _ms(torch, lambda: msm2._bucket_reduce(tf, table))
@@ -410,6 +469,7 @@ def main(argv=None) -> int:
         pedersen.CommitmentEngine.commit(ck, v)
     res["commit_wall_ms"] = (time.perf_counter() - t0) * 1e3 / REPS
     db = ck.device_bases2(N_COMMIT)
+    res["windows"] = _windows(torch, fk, msm2, pallas, tf, db)
     msm2.msm_device2(scal, device_bases=db, reuse=True)  # the window precompute
     res["complete_add"] = _complete_adds(
         torch, fk, msm2, msm3, lambda: pedersen.CommitmentEngine.commit(ck, v),

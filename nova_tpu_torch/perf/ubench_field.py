@@ -2,11 +2,18 @@
 
 Kernels P1 (``mont16_chain``, radix 2^16) and P2 (``mont8_chain``, radix
 2^8): ITERS chained Montgomery products A <- A*B*2^-256 over the Pallas
-base field, one column per element, in ``(NL, N)`` limb layout. On CUDA
-tensors each wrapper launches its kernel from ``csrc/ubench_kernels.cu``
-(or raises); on CPU tensors it runs its plain PyTorch version. Both copy
-the probe's odd edges: random limbs rather than canonical elements, uint32
-products, no final conditional subtraction, the top carry dropped.
+base field, one column per element, in ``(NL, N)`` limb layout. Both
+compute one function, the TPU bodies' odd edges included: random limbs
+rather than canonical elements, no final conditional subtraction, the top
+carry dropped, so each step is A <- ((A*B + M*p) / 2^256) mod 2^256 with
+M = -A*B*p^-1 mod 2^256. On CUDA tensors each wrapper launches
+``csrc/ubench_kernels.cu``'s ``mont_chain_kernel`` in its radix (or
+raises): the limbs packed into 32-bit words and the chain run with the
+port's carry-chain product, its field constants those of
+``fields/spec.py``'s Pallas base (the same as K1's). That kernel takes
+limbs below 2^BITS, as ``inputs`` makes them, and does not check them. On
+CPU tensors each wrapper runs its plain PyTorch version, the TPU body's
+radix-2^BITS columns on int64 lanes.
 
 The raw probes (``raw_mul_chain``, ``raw_mulmask_chain``, ``raw_f32_chain``)
 are XLA programs in the JAX package and stay plain PyTorch here.
@@ -28,6 +35,8 @@ import torch
 
 from nova_tpu_torch import _build
 from nova_tpu_torch._device import on_cuda, resolve
+from nova_tpu_torch.fields.spec import pallas_base
+from nova_tpu_torch.fields.tfield import TField
 
 N_LOG2, ITERS = 18, 20
 
@@ -134,7 +143,7 @@ def _chain(bits: int, a, b, iters: int):
     with torch.cuda.device(out.device):
         err = getattr(_build.lib(), f"nt_{name}")(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1], iters,
-            _build.stream_of(out),
+            TField(pallas_base).consts_ptr, _build.stream_of(out),
         )
         _build.check(err, name)
         _build.LAUNCHES[name] += 1

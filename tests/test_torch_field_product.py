@@ -13,12 +13,30 @@ contract T = (a*b + m*p) / 2^256, minus p once when T >= p or T >= 2^256,
 on edge values and seeded values in [0, 2^256), for every field.
 (c) K2's plain version on identity-heavy tables shaped like a commit's
 bucket totals, bitwise against ``nova_tpu.ops.msm2._xyzz_add_limbs``.
+(d) The model's lazy ending (``csrc/field.cuh::fe_mul_lazy``: no subtract,
+the carry word dropped, which is what P1/P2 chain), bitwise against the
+field microbenchmark's plain chains (``perf/ubench_field.py::
+mont_chain_plain`` of the port) in radix 2^16 and 2^8 and against the JAX
+package's TPU bodies ``mont16_kernel``/``mont8_kernel`` in Pallas interpret
+mode, at ITERS 1 and 3, on edge columns (all limbs 0, all limbs 2^BITS - 1,
+p's limbs, 1) and seeded ones; the same chain with the subtract kept, or
+with the carry word kept, must differ. The JAX module is imported with its
+argv patched to N = 256, ITERS = 1, as ``tests/test_torch_ubench.py``
+imports it; each body is compiled once (XLA's compile of the unrolled body
+is most of this file's time) and ITERS = 3 is three launches of it.
 """
 
+import importlib.util
+import os
+import sys
+from unittest import mock
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from nova_tpu.fields import spec as jspec
 from nova_tpu.fields.jfield import JField
@@ -27,6 +45,7 @@ from nova_tpu.ops import msm2 as jmsm2
 from nova_tpu_torch.fields import kernels as fk
 from nova_tpu_torch.fields import spec as tspec
 from nova_tpu_torch.fields.tfield import TField
+from nova_tpu_torch.perf import ubench_field as tub
 
 # One intra-op thread per test process: the plain versions issue many small
 # ops, and thread-pool contention slows those by orders of magnitude.
@@ -164,8 +183,10 @@ def _redc_row(c, ev, od, x, P, n0):
     return c.addc(x, 0)
 
 
-def fe_mul_model(a: int, b: int, p: int) -> int:
-    """csrc/field.cuh::fe_mul, op for op, on Python ints."""
+def fe_mul_model(a: int, b: int, p: int, ending: str = "sub") -> int:
+    """csrc/field.cuh::fe_mul (ending "sub"), or fe_mul_lazy ("lazy": T mod
+    2^256, no subtract, the carry word dropped), op for op, on Python ints.
+    "carry" is a mutation of the lazy ending that keeps the carry word."""
     A, B, P = ([(v >> (32 * k)) & M32 for k in range(8)] for v in (a, b, p))
     n0 = -pow(p, -1, 1 << 32) % (1 << 32)
     c = _Carry()
@@ -181,7 +202,11 @@ def fe_mul_model(a: int, b: int, p: int) -> int:
     t = [c.add_cc(u[0], v[1])]
     t += [c.addc_cc(u[j], v[j + 1]) for j in range(1, 7)]
     t.append(c.addc_cc(u[7], 0))
+    if ending == "lazy":
+        return sum(w << (32 * k) for k, w in enumerate(t))
     top = c.addc(x, 0)
+    if ending == "carry":
+        return sum(w << (32 * k) for k, w in enumerate(t + [top]))
     # fe_cond_sub: one subtract of p when T >= p or T overflows 2^256
     d, borrow = [], 0
     for j in range(8):
@@ -252,3 +277,100 @@ def test_xyzz_add_plain_identity_heavy_bitwise():
     got = fk.xyzz_add(tf, {k: _t(x) for k, x in P.items()}, {k: _t(x) for k, x in Q.items()})
     for k, limbs in zip(fk.KEYS, want):
         assert _eq(np.stack([np.asarray(l) for l in limbs], axis=1), got[k]), k
+
+
+# -- (d) the lazy ending: the field microbenchmark's chains --------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+UB_COLS = 32
+
+
+def _ub_operands():
+    """Column pairs: every pair of the edge values, then seeded values."""
+    edges = [0, (1 << 256) - 1, tub.P, 1]
+    rng = np.random.default_rng(14)
+    pairs = [(x, y) for x in edges for y in edges]
+    pairs += [tuple(int.from_bytes(rng.bytes(32), "little") for _ in range(2))
+              for _ in range(UB_COLS - len(pairs))]
+    return [x for x, _ in pairs], [y for _, y in pairs]
+
+
+_UB_A, _UB_B = _ub_operands()
+
+
+def _limb_rows(vals, bits):
+    mask = (1 << bits) - 1
+    return np.array([[(v >> (bits * i)) & mask for v in vals] for i in range(256 // bits)],
+                    dtype=np.uint32)
+
+
+def _values(rows, bits):
+    rows = np.asarray(rows).astype(np.int64)
+    return [sum(int(rows[i, c]) << (bits * i) for i in range(rows.shape[0]))
+            for c in range(rows.shape[1])]
+
+
+def _lazy_contract(a, b, p):
+    """((a*b + m*p) / 2^256) mod 2^256, m = -a*b*p^-1 mod 2^256."""
+    R = 1 << 256
+    m = -a * b * pow(p, -1, R) % R
+    return ((a * b + m * p) >> 256) % R
+
+
+def _model_chains(iters, ending):
+    """Each column's chain of `iters` products: fe_mul_model with `ending`,
+    or `ending` itself when it is a function."""
+    step = ending if callable(ending) else (lambda a, b, p: fe_mul_model(a, b, p, ending))
+    out = []
+    for a, b in zip(_UB_A, _UB_B):
+        for _ in range(iters):
+            a = step(a, b, tub.P)
+        out.append(a)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_bodies():
+    """{bits: the TPU body at ITERS = 1 in one jitted pallas_call in
+    interpret mode, on (NL, UB_COLS) uint32 limbs}."""
+    spec = importlib.util.spec_from_file_location(
+        "_jax_ubench_field_lazy", os.path.join(ROOT, "perf", "ubench_field.py"))
+    mod = importlib.util.module_from_spec(spec)
+    with mock.patch.object(sys, "argv", ["ubench_field.py", "8", "1"]):
+        spec.loader.exec_module(mod)
+    assert mod.ITERS == 1
+    return {bits: jax.jit(pl.pallas_call(
+        body, out_shape=jax.ShapeDtypeStruct((256 // bits, UB_COLS), jnp.uint32),
+        grid=(1,), interpret=True))
+        for bits, body in ((16, mod.mont16_kernel), (8, mod.mont8_kernel))}
+
+
+def test_ubench_field_is_the_spec_pallas_base():
+    """P1/P2's kernel takes fields/spec.py's Pallas base constants."""
+    tf = TField(tspec.pallas_base)
+    assert tspec.pallas_base.p == tub.P
+    assert sum(int(w) << (32 * k) for k, w in enumerate(tf.consts32[:8])) == tub.P
+    assert int(tf.consts32[16]) == -pow(tub.P, -1, 1 << 32) % (1 << 32)
+
+
+@pytest.mark.parametrize("iters", [1, 3])
+@pytest.mark.parametrize("bits", [16, 8])
+def test_lazy_product_model_matches_chains(jax_bodies, bits, iters):
+    model = _model_chains(iters, "lazy")
+    assert model == _model_chains(iters, _lazy_contract)
+    A, B = _limb_rows(_UB_A, bits), _limb_rows(_UB_B, bits)
+    plain = tub.mont_chain_plain(torch.from_numpy(A.astype(np.int32)),
+                                 torch.from_numpy(B.astype(np.int32)), iters, bits)
+    assert _values(plain.numpy(), bits) == model
+    got, jb = jnp.asarray(A), jnp.asarray(B)
+    for _ in range(iters):
+        got = jax_bodies[bits](got, jb)
+    assert _values(got, bits) == model
+
+
+def test_lazy_ending_mutations_differ():
+    """The chains above catch a product that keeps its subtract, or keeps
+    the carry word (the all-ones column's first product passes 2^256)."""
+    for iters in (1, 3):
+        assert _model_chains(iters, "sub") != _model_chains(iters, "lazy")
+    assert _model_chains(1, "carry") != _model_chains(1, "lazy")
