@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: the device Pedersen commit, the
 IVC fold step (RecursiveSNARK.prove_step) at a 2^17-constraint primary, its
-compression (CompressedSNARK) and the field microbenchmark.
+compression (CompressedSNARK), the same on BN254/Grumpkin with a
+powers-of-tau key and HyperKZG compression, and the field microbenchmark.
 
-    python3 chip_smoke.py                # 2^16 commit, 2^17 fold step
+    python3 chip_smoke.py                # 2^16 commit, 2^17 fold steps
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
-    python3 chip_smoke.py --rehearse     # CPU dry run at 2^10 / 2^14 (and
-                                         # a 2^10-column microbenchmark),
-                                         # plain versions, no result
+    python3 chip_smoke.py --rehearse     # CPU dry run at 2^10 / 2^14 (a
+                                         # power-14 ptau file, a 2^10-column
+                                         # microbenchmark), plain versions,
+                                         # no result
+
+The test ptau file of phase 9 is written once into nova_tpu_torch/_build/ptau/
+(git-ignored) and reused by later runs; nothing is downloaded.
 
 Phases (each fatal; on failure the script exits non-zero and prints no
 result line):
@@ -75,15 +80,30 @@ result line):
    must give the same proof byte for byte; K1 in the device sumcheck's
    first round against its plain version (bitwise); the randomizer's W
    commit (msm_device2) against the native host MSM;
+9. BN254/Grumpkin with HyperKZG: a test ptau file at power 17 (tau drawn
+   from SEED; written once, then reused), PublicParams.setup_with_ptau_dir
+   on CUDA with a squaring chain that pads the BN254 primary to 2^17
+   constraints (its trivial augmented count read from a ShapeCS), new, 3
+   prove_steps (one timed replay, by phase) and verify (z0^(2^(3 *
+   squares))), CompressedSNARK with HyperKZG on the primary and IPA on the
+   secondary (prove by phase) and verify; the counts reset just before new
+   and read just after compression's verify: K1, K2, K2s, K4, K5 and B6
+   must have launched, and K3 once a window of the KZG key's precomputes;
+   proofs with zn or a HyperKZG witness changed must fail; phase 6's
+   kernel checks on this path's BN254 inputs (bitwise) and each kernel
+   timed there; then the routing thresholds re-measured at n = 2^10 ...
+   2^17 (the native host MSM against msm_device2 and against
+   msm_device3_mont, the native cross-term against commit_T_device);
 8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
    ITERS = 20) with the counts reset just before and read just after; P1
    and P2 (one kernel, two limb layouts) against their plain versions
    (bitwise) and timed beside their bound: one Montgomery product per
    column and step.
 
-After the phases, launches are checked: K3 (a key's window precompute
-only) must not launch in a commit, a replayed prove_step, an msm_device2
-or a compression, and must launch once a window in each key's precompute
+Phases run in the order 1-7, 9, 8. After them, launches are checked: K3
+(a key's window precompute only) must not launch in a commit, a replayed
+prove_step (either curve cycle), an msm_device2 or a compression, and must
+launch once a window in each key's precompute
 (16 for the commit key, 19 for the witness key); a commit must launch K2
 twice, K5 once and K2s once.
 
@@ -159,6 +179,15 @@ UB_LOG_N, UB_ITERS, REHEARSE_UB_LOG_N, REHEARSE_UB_ITERS = 18, 20, 10, 2
 # circuit (tests/test_ivc.py); the squaring chain adds one per square
 AUGMENTED_PRIMARY_CONS = 9818
 FOLD_STEPS = 5
+# phase 9: the test ptau file's power (2^17 G1 powers, the BN254 primary's
+# key), the prove_steps (the bump, the tape build, one timed replay), and
+# the kernels the KZG path must launch (K3 only in the key's precompute)
+PTAU_POWER, REHEARSE_PTAU_POWER = 17, 14
+KZG_STEPS = 3
+KZG_KERNELS = ("mont_mul", "xyzz_add", "accum", "suffix_segmented", "bucket_reduce", "stage")
+# the kernel calls phases 6 and 9 capture on their path and hold bitwise
+PATH_CHECKS = {"mont_mul", "xyzz_double", "bucket_reduce", "accum", "suffix_segmented",
+               "xyzz_add/commit", "mont_mul/spmv"}
 # Montgomery products per active lane per round of a B6 stage
 STAGE_MULS = {"complete": 26, "fast": 14, "fast0": 6}
 
@@ -500,27 +529,177 @@ def sync(torch) -> None:
         torch.cuda.synchronize()
 
 
+def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool) -> dict:
+    """The checks of a fold step's kernels on its own inputs (phases 6 and
+    9), on the primary's curve: one fresh primary witness committed by
+    msm_device2, msm_device3 and the host Pippenger (equal); B6 against its
+    plain version on the stage inputs of that commit, in every mode that
+    stage runs (timed when `timed`); K1, K3 and K5 in msm_device2 on a
+    fresh copy of the witness key (the window precompute rebuilt); K4, K2s
+    and K2 in a commit of the running witness; the device cross-term
+    commit_T_device (plain and relaxed) on the padded primary against T
+    formed on the host, with K1 in its SpMV; every kernel bitwise."""
+    from nova_tpu_torch import _build
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.fields.tfield import TField
+    from nova_tpu_torch.ops import fold as fold_ops
+    from nova_tpu_torch.ops import msm2, msm3, spmv
+    from nova_tpu_torch.ops.fvec import FVec, as_list
+    from nova_tpu_torch.provider.pedersen import CommitmentEngine
+
+    curve = pp.ck_primary.curve
+    witness = list(rs._wgen_primary.cs.aux_assignment)
+    if args.rehearse:
+        witness = witness[:512]
+    n = len(witness)
+    db = pp.ck_primary.device_bases2(n)
+    captured = []
+    real_stage = msm2.stage
+
+    def recording_stage(*a, **k):
+        captured.append((a, k))
+        return real_stage(*a, **k)
+
+    msm2.stage = recording_stage
+    try:
+        got2 = msm2.msm_device2(witness, device_bases=db, reuse=True)
+    finally:
+        msm2.stage = real_stage
+    got3 = msm3.msm_device3(witness, device_bases=db)
+    host = host_msm_parallel(curve, witness, pp.ck_primary.ck[:n], workers)
+    if not got2 == got3 == host:
+        raise PhaseError(f"fresh witness: msm_device2 {got2}, msm_device3 {got3}, host {host}")
+    log(f"fresh {curve.name} witness ({n} scalars): msm_device2 == msm_device3 == host msm")
+
+    # B6 against its plain version on the real first stage (affine input)
+    # and the second (XYZZ input) of that commit
+    (tf, rounds, masks, pts, _), k0 = captured[0][0], captured[0][1]
+    first = (tf, rounds, masks, pts, k0.get("live"))
+    (tf, rounds, masks, pts, _), _k = captured[1][0], captured[1][1]
+    later = (tf, rounds, masks, pts, None)
+    stage_rows, err = {}, 0
+    for label, mode, (tf, rounds, masks, pts, live) in (
+        ("first", "fast0", first), ("first", "complete", first),
+        ("later", "fast", later), ("later", "complete", later),
+    ):
+        got, gflag = msm2.stage(tf, rounds, masks, pts, mode, live)
+        ref, rflag = msm2.stage_plain(tf, rounds, masks, pts, mode, live)
+        e = max_abs_err(torch, got, ref)
+        if bool(gflag.any()) != bool(rflag):
+            raise PhaseError(f"B6 {mode} on the {label} stage: flag {gflag} != {rflag}")
+        err = max(err, e)
+        row = {"lanes": int(masks.shape[1]), "rounds": rounds, "max_abs_err": e}
+        if timed:
+            b_ms, b_by = stage_bound(masks, mode, live is not None)
+            row.update({
+                "ms": cuda_ms(torch, lambda: msm2.stage(tf, rounds, masks, pts, mode, live),
+                              reps),
+                "plain_ms": cuda_ms(
+                    torch, lambda: msm2.stage_plain(tf, rounds, masks, pts, mode, live), 1),
+                "bound_ms": b_ms, "bound_by": b_by,
+            })
+        stage_rows[f"{label}/{mode}"] = row
+    log("B6: " + json.dumps(stage_rows))
+    if err:
+        raise PhaseError(f"B6 disagrees with its plain version: max |err| {err}")
+
+    # K1, K3-K5 and K2s against their plain versions on the inputs the fold
+    # step gives them: an msm_device2 on a fresh copy of the witness key
+    # recomputes the window precompute (K3 doublings, K1 in the batched
+    # inversion) and reduces its buckets (K5); a commit of the running
+    # witness (verify's route) runs K4, K2s and K2; the cross-term's SpMV
+    # runs K1
+    fresh = msm2.DeviceBases2.from_tensors(curve, db.x, db.y, db.inf)
+    before = dict(_build.LAUNCHES)
+    with largest_calls({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
+                        "xyzz_double": (fk, "xyzz_double"),
+                        "bucket_reduce": (msm2, "_bucket_reduce")}) as seen:
+        again = msm2.msm_device2(witness, device_bases=fresh, reuse=True)
+    if again != got2:
+        raise PhaseError(f"msm_device2 with the precompute rebuilt: {again} != {got2}")
+    cold = launch_delta(_build, before)
+    before = dict(_build.LAUNCHES)
+    msm2.msm_device2(witness, device_bases=fresh, reuse=True)
+    warm = launch_delta(_build, before)
+    precompute = {k: cold[k] - warm[k] for k in cold}
+    log(f"msm_device2 launches: with the window precompute {cold}, without {warm}; "
+        f"the precompute alone {precompute}")
+    sf = TField(curve.scalar)
+    with largest_calls({"accum": (msm3, "accum"),
+                        "suffix_segmented": (msm3, "suffix_to_buckets"),
+                        "xyzz_add/commit": (fk, "xyzz_add")}) as seen4:
+        CommitmentEngine.commit(pp.ck_primary, FVec.coerce(sf, rs.r_W_primary.W, dev))
+    seen.update(seen4)
+
+    # the device cross-term on the padded (square) primary shape, plain and
+    # relaxed (the running instance folded with itself), against T formed
+    # on the host with pure-Python SpMV
+    S = pp.r1cs_shape_primary.pad()
+    U, Wr = rs.r_U_primary, rs.r_W_primary.pad(S)
+    with largest_calls({"spmv": (spmv, "spmv_m")}) as seen_spmv:
+        t_dev = {rel: fold_ops.commit_T_device(S, U, Wr, U, Wr, rel, dev).to_ints()
+                 for rel in (False, True)}
+    q = S.field.p
+    ww, ew = as_list(Wr.W), as_list(Wr.E)
+    for rel in (False, True):
+        u = (U.u + (U.u if rel else 1)) % q
+        z = [2 * w % q for w in ww] + [u] + [2 * x % q for x in U.X]
+        az, bz, cz = (M.multiply_vec(z) for M in (S.A, S.B, S.C))
+        e = 2 if rel else 1
+        if t_dev[rel] != [(a * b - u * c - e * x) % q for a, b, c, x in zip(az, bz, cz, ew)]:
+            raise PhaseError(f"commit_T_device (relaxed={rel}) != host T")
+    t_ms = None
+    if timed:
+        t_ms = cuda_ms(torch, lambda: fold_ops.commit_T_device(S, U, Wr, U, Wr, True, dev),
+                       reps)
+    log(f"commit_T_device on the {S.num_cons} x {S.num_vars} padded primary: plain and "
+        f"relaxed == host T; relaxed {t_ms} ms")
+    tf_s, csr, zm = seen_spmv["spmv"]
+    seen["mont_mul/spmv"] = (tf_s, zm[csr.indices], csr.data)
+
+    # (a rehearsal's 2^14 running witness is committed on the host: no K4,
+    # K2s or commit K2 there)
+    missing = PATH_CHECKS - set(seen)
+    if missing and not args.rehearse:
+        raise PhaseError(f"kernel calls not seen on the fold step's path: {sorted(missing)}")
+    kernel_errs, checked = {}, {}
+    for label, a in seen.items():
+        name = label.split("/")[0]
+        e = kernel_vs_plain(torch, name, a)
+        kernel_errs[name] = max(kernel_errs.get(name, 0), e)
+        checked[label] = {"rows": list(first_input(a).shape), "max_abs_err": e}
+    kernel_errs["stage"] = err
+    log(f"{curve.name} fold-step kernels against their plain versions: " + json.dumps(checked))
+    bad = {k: e for k, e in kernel_errs.items() if e}
+    if bad:
+        raise PhaseError(f"fold-step kernels disagree with their plain versions: {bad}")
+    return {"witness": witness, "db": db, "got2": got2, "fresh": fresh, "stage_rows": stage_rows,
+            "stage_err": err, "stage_first": first[:4] + ("fast0", first[4]),
+            "seen": seen, "kernel_errs": kernel_errs, "warm": warm,
+            "precompute": precompute, "commit_T_ms": t_ms}
+
+
 def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     """Phases 5 and 6: the fold step's main path, then its checks and
     timings. Returns the stage kernel's row fields and the fold-step
     numbers."""
     import numpy as np
 
-    from nova_tpu_torch import _build, profiling
+    from nova_tpu_torch import _build, native, profiling
     from nova_tpu_torch.curves.spec import pallas
     from nova_tpu_torch.fields import kernels as fk
-    from nova_tpu_torch.fields.tfield import TField
     from nova_tpu_torch.nova.ivc import PublicParams, RecursiveSNARK
-    from nova_tpu_torch.ops import fold as fold_ops
-    from nova_tpu_torch.ops import msm2, msm3, spmv
-    from nova_tpu_torch.ops.fvec import FVec, as_list
+    from nova_tpu_torch.ops import msm2
     from nova_tpu_torch.provider.engines import PallasEngine, VestaEngine
-    from nova_tpu_torch.provider.pedersen import CommitmentEngine
 
     reps = 1 if args.rehearse else 5
     log_cons = REHEARSE_FOLD_LOG_CONS if args.rehearse else FOLD_LOG_CONS
     log(f"== phase 5: fold step (squaring chain, primary 2^{log_cons} "
         f"constraints, {FOLD_STEPS} prove_steps)")
+    # the fold step's host routes (secondary commits, cross-terms, Poseidon,
+    # satisfiability checks) run in the native binding, as in the reference
+    if not native.available():
+        raise PhaseError("the native host binding did not build (native/nova_native.cpp)")
     squares = (1 << log_cons) - AUGMENTED_PRIMARY_CONS
     circuit = square_chain(squares)
     t0 = time.perf_counter()
@@ -593,119 +772,11 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
 
     log("== phase 6: fold-step kernels and MSMs")
     t6 = time.perf_counter()
-    witness = list(rs._wgen_primary.cs.aux_assignment)
-    if args.rehearse:
-        witness = witness[:512]
-    n = len(witness)
-    db = pp.ck_primary.device_bases2(n)
-    captured = []
-    real_stage = msm2.stage
-
-    def recording_stage(*a, **k):
-        captured.append((a, k))
-        return real_stage(*a, **k)
-
-    msm2.stage = recording_stage
-    try:
-        got2 = msm2.msm_device2(witness, device_bases=db, reuse=True)
-    finally:
-        msm2.stage = real_stage
-    got3 = msm3.msm_device3(witness, device_bases=db)
-    host = host_msm_parallel(pallas, witness, pp.ck_primary.ck[:n], workers)
-    if not got2 == got3 == host:
-        raise PhaseError(f"fresh witness: msm_device2 {got2}, msm_device3 {got3}, host {host}")
-    log(f"fresh witness ({n} scalars): msm_device2 == msm_device3 == host msm")
-
-    # B6 against its plain version on the real first stage (affine input)
-    # and the second (XYZZ input) of that commit
-    (tf, rounds, masks, pts, _), k0 = captured[0][0], captured[0][1]
-    first = (tf, rounds, masks, pts, k0.get("live"))
-    (tf, rounds, masks, pts, _), _k = captured[1][0], captured[1][1]
-    later = (tf, rounds, masks, pts, None)
-    stage_rows, err = {}, 0
-    for label, mode, (tf, rounds, masks, pts, live) in (
-        ("first", "fast0", first), ("first", "complete", first),
-        ("later", "fast", later), ("later", "complete", later),
-    ):
-        got, gflag = msm2.stage(tf, rounds, masks, pts, mode, live)
-        ref, rflag = msm2.stage_plain(tf, rounds, masks, pts, mode, live)
-        e = max_abs_err(torch, got, ref)
-        if bool(gflag.any()) != bool(rflag):
-            raise PhaseError(f"B6 {mode} on the {label} stage: flag {gflag} != {rflag}")
-        err = max(err, e)
-        b_ms, b_by = stage_bound(masks, mode, live is not None)
-        stage_rows[f"{label}/{mode}"] = {
-            "lanes": int(masks.shape[1]), "rounds": rounds, "max_abs_err": e,
-            "ms": cuda_ms(torch, lambda: msm2.stage(tf, rounds, masks, pts, mode, live), reps),
-            "plain_ms": cuda_ms(
-                torch, lambda: msm2.stage_plain(tf, rounds, masks, pts, mode, live), 1),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-    log("B6: " + json.dumps(stage_rows))
-    if err:
-        raise PhaseError(f"B6 disagrees with its plain version: max |err| {err}")
-
-    # K1, K3-K5 and K2s against their plain versions on the inputs the fold
-    # step gives them: an msm_device2 on a fresh copy of the witness key
-    # recomputes the window precompute (K3 doublings, K1 in the batched
-    # inversion) and reduces its buckets (K5); a commit of the running
-    # witness (verify's route) runs K4, K2s and K2; the cross-term's SpMV
-    # runs K1
-    fresh = msm2.DeviceBases2.from_tensors(pallas, db.x, db.y, db.inf)
-    before = dict(_build.LAUNCHES)
-    with largest_calls({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
-                        "xyzz_double": (fk, "xyzz_double"),
-                        "bucket_reduce": (msm2, "_bucket_reduce")}) as seen:
-        again = msm2.msm_device2(witness, device_bases=fresh, reuse=True)
-    if again != got2:
-        raise PhaseError(f"msm_device2 with the precompute rebuilt: {again} != {got2}")
-    cold = launch_delta(_build, before)
-    before = dict(_build.LAUNCHES)
-    msm2.msm_device2(witness, device_bases=fresh, reuse=True)
-    warm = launch_delta(_build, before)
-    precompute = {k: cold[k] - warm[k] for k in cold}
-    log(f"msm_device2 launches: with the window precompute {cold}, without {warm}; "
-        f"the precompute alone {precompute}")
-    sf = TField(pallas.scalar)
-    with largest_calls({"accum": (msm3, "accum"),
-                        "suffix_segmented": (msm3, "suffix_to_buckets"),
-                        "xyzz_add/commit": (fk, "xyzz_add")}) as seen4:
-        CommitmentEngine.commit(pp.ck_primary, FVec.coerce(sf, rs.r_W_primary.W, dev))
-    seen.update(seen4)
-
-    # the device cross-term on the padded (square) primary shape, plain and
-    # relaxed (the running instance folded with itself), against T formed
-    # on the host with pure-Python SpMV
-    S = pp.r1cs_shape_primary.pad()
-    U, Wr = rs.r_U_primary, rs.r_W_primary.pad(S)
-    with largest_calls({"spmv": (spmv, "spmv_m")}) as seen_spmv:
-        t_dev = {rel: fold_ops.commit_T_device(S, U, Wr, U, Wr, rel, dev).to_ints()
-                 for rel in (False, True)}
-    q = S.field.p
-    ww, ew = as_list(Wr.W), as_list(Wr.E)
-    for rel in (False, True):
-        u = (U.u + (U.u if rel else 1)) % q
-        z = [2 * w % q for w in ww] + [u] + [2 * x % q for x in U.X]
-        az, bz, cz = (M.multiply_vec(z) for M in (S.A, S.B, S.C))
-        e = 2 if rel else 1
-        if t_dev[rel] != [(a * b - u * c - e * x) % q for a, b, c, x in zip(az, bz, cz, ew)]:
-            raise PhaseError(f"commit_T_device (relaxed={rel}) != host T")
-    t_ms = cuda_ms(torch, lambda: fold_ops.commit_T_device(S, U, Wr, U, Wr, True, dev), reps)
-    log(f"commit_T_device on the {S.num_cons} x {S.num_vars} padded primary: plain and "
-        f"relaxed == host T; relaxed {t_ms:.3f} ms")
-    tf_s, csr, zm = seen_spmv["spmv"]
-    seen["mont_mul/spmv"] = (tf_s, zm[csr.indices], csr.data)
-
-    kernel_errs, checked = {}, {}
-    for label, a in seen.items():
-        name = label.split("/")[0]
-        e = kernel_vs_plain(torch, name, a)
-        kernel_errs[name] = max(kernel_errs.get(name, 0), e)
-        checked[label] = {"rows": list(first_input(a).shape), "max_abs_err": e}
-    log("fold-step kernels against their plain versions: " + json.dumps(checked))
-    bad = {k: e for k, e in kernel_errs.items() if e}
-    if bad:
-        raise PhaseError(f"fold-step kernels disagree with their plain versions: {bad}")
+    chk = path_kernels(args, torch, dev, pp, rs, workers, reps, timed=True)
+    witness, db, got2, fresh = chk["witness"], chk["db"], chk["got2"], chk["fresh"]
+    stage_rows, err, seen, kernel_errs = (chk["stage_rows"], chk["stage_err"], chk["seen"],
+                                          chk["kernel_errs"])
+    warm, precompute, t_ms = chk["warm"], chk["precompute"], chk["commit_T_ms"]
     # K5 on msm_device2's table (2^13 buckets at the 2^17 witness)
     tf5, table5 = seen["bucket_reduce"][:2]
     k5_d2 = {"buckets": int(table5["x"].shape[0]),
@@ -959,6 +1030,308 @@ def compress(args, torch, dev, pp, rs) -> dict:
             "outer_ms": o["ms"], "other_route_ms": other_ms}
 
 
+def kernel_call(name: str, args):
+    """A call of kernel `name`'s wrapper on captured arguments."""
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.ops import msm2, msm3
+
+    if name == "bucket_reduce":
+        return lambda: msm2._bucket_reduce(*args[:2])
+    if name == "stage":
+        return lambda: msm2.stage(*args)
+    fn = {"mont_mul": fk.mont_mul, "xyzz_add": fk.xyzz_add, "xyzz_double": fk.xyzz_double,
+          "accum": msm3.accum, "suffix_segmented": msm3.suffix_to_buckets}[name]
+    return lambda: fn(*args)
+
+
+def chain_shape(field, n: int):
+    """A regular R1CS of n squares (n constraints and variables, 2 public
+    inputs): z[i+1] = z[i]^2 for i < n - 1, and z[n-1] * u = X[0]. For the
+    cross-term's routes at any power-of-two size."""
+    from nova_tpu_torch.r1cs import R1CSShape, SparseMatrix
+
+    one, ptr, cols = [1] * n, list(range(n + 1)), n + 3
+    A = SparseMatrix(field, one, list(range(n)), ptr, cols)
+    B = SparseMatrix(field, one, list(range(n - 1)) + [n], ptr, cols)
+    C = SparseMatrix(field, one, list(range(1, n)) + [n + 1], ptr, cols)
+    return R1CSShape(field, n, n, 2, A, B, C)
+
+
+def thresholds(args, torch, dev, pp) -> dict:
+    """The routing thresholds re-measured on the card at n = 2^10 ... 2^17
+    (2^10 and 2^11 in a rehearsal), on phase 9's 2^17 KZG key: ms of the
+    native host MSM against msm_device2 for an int list, of bringing an FVec
+    to the host plus the native MSM against msm_device3_mont, and of the
+    host native cross-term and its commit against commit_T_device and the
+    fixed-base MSM (median of 3 after a warm-up; host clock up to a
+    synchronise). Each pair's results are held equal."""
+    import numpy as np
+
+    from nova_tpu_torch import native
+    from nova_tpu_torch.ops import fold as fold_ops
+    from nova_tpu_torch.ops import msm2, msm3
+    from nova_tpu_torch.ops.fvec import FVec, HVec
+    from nova_tpu_torch.provider.pedersen import Commitment
+    from nova_tpu_torch.r1cs import (
+        R1CSInstance,
+        R1CSWitness,
+        RelaxedR1CSInstance,
+        RelaxedR1CSWitness,
+    )
+
+    ck = pp.ck_primary
+    curve, field = ck.curve, ck.curve.scalar
+    p = field.p
+    rng = np.random.default_rng(SEED + 9)
+    db = ck.device_bases2(len(ck.ck))
+    arrays = ck.host_arrays(len(ck.ck))
+    reps = 1 if args.rehearse else 3
+
+    def ms(fn):
+        res = fn()
+        sync(torch)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync(torch)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts), res
+
+    def rand(n):
+        raw = rng.bytes(32 * n)
+        return [int.from_bytes(raw[32 * i : 32 * i + 32], "little") % p for i in range(n)]
+
+    out = {}
+    comm = Commitment.default(curve)
+    for k in range(10, 12 if args.rehearse else 18):
+        n = 1 << k
+        scal = rand(n)
+        v = FVec.from_ints(field, scal, device=dev)
+        row = {}
+        row["int_native_ms"], a = ms(lambda: native.msm_cached(curve, arrays, scal))
+        row["int_msm_device2_ms"], b = ms(
+            lambda: msm2.msm_device2(scal, device_bases=db, reuse=True))
+        row["fvec_native_ms"], c = ms(
+            lambda: native.msm_cached(curve, arrays, FVec(v.tf, v.m).to_ints()))
+        row["fvec_msm_device3_ms"], d = ms(lambda: msm3.msm_device3_mont(v.m, db))
+        if not a == b == c == d:
+            raise PhaseError(f"threshold sweep at 2^{k}: the MSM routes disagree")
+        S = chain_shape(field, n)
+        X1, X2, (u1,) = rand(2), rand(2), rand(1)
+        W1, E1, W2 = rand(n), rand(n), rand(n)
+        U1, U2 = RelaxedR1CSInstance(comm, comm, X1, u1), R1CSInstance(comm, X2)
+        # the running witness as each route holds it, the new one as ints
+        Wh = RelaxedR1CSWitness(HVec(p, ints=W1), 0, HVec(p, ints=E1), 0)
+        Wf = RelaxedR1CSWitness(FVec.from_ints(field, W1, device=dev), 0,
+                                FVec.from_ints(field, E1, device=dev), 0)
+        W2w = R1CSWitness(W2, 0)
+        row["cross_term_native_ms"], (Th, ch) = ms(
+            lambda: S._commit_T_limbs(ck, U1, Wh, U2, W2w, 0, (u1 + 1) % p))
+
+        def device_T():
+            T = fold_ops.commit_T_device(S, U1, Wf, U2, W2w, False, dev)
+            return T, msm3.msm_device3_mont(T.m, db)
+
+        row["cross_term_device_ms"], (Td, cd) = ms(device_T)
+        if Th.to_ints() != Td.to_ints() or ch.point != cd:
+            raise PhaseError(f"threshold sweep at 2^{k}: the cross-term routes disagree")
+        out[f"2^{k}"] = row
+    cross = {}
+    for host, device in (("int_native_ms", "int_msm_device2_ms"),
+                         ("fvec_native_ms", "fvec_msm_device3_ms"),
+                         ("cross_term_native_ms", "cross_term_device_ms")):
+        faster = [k for k, r in out.items() if r[device] < r[host]]
+        cross[f"{device} < {host} from"] = faster[0] if faster else None
+    log("thresholds (ms, host clock): " + json.dumps(out))
+    log("thresholds: device route faster from " + json.dumps(cross))
+    return {"sizes": out, "crossovers": cross}
+
+
+def kzg_path(args, torch, dev, workers: int) -> dict:
+    """Phase 9: BN254/Grumpkin with HyperKZG. A test ptau file (written from
+    a tau drawn from SEED, or reused), PublicParams.setup_with_ptau_dir on
+    the card with a squaring chain whose BN254 primary pads to 2^17
+    constraints, RecursiveSNARK.new, KZG_STEPS prove_steps (timed by phase)
+    and verify, then CompressedSNARK with HyperKZG on the primary and IPA on
+    the secondary (prove timed by phase) and verify, the counts reset just
+    before new and read just after compression's verify; tampered proofs;
+    every kernel of the path against its plain version on this path's
+    inputs and timed there; and the routing thresholds re-measured."""
+    import numpy as np
+
+    from nova_tpu_torch import _build, native, profiling
+    from nova_tpu_torch.curves.spec import bn254
+    from nova_tpu_torch.errors import NovaError
+    from nova_tpu_torch.frontend.constraint_system import ShapeCS
+    from nova_tpu_torch.nova.circuit import NovaAugmentedCircuit, TrivialCircuit
+    from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.nova.ivc import PublicParams, RecursiveSNARK
+    from nova_tpu_torch.ops import msm2
+    from nova_tpu_torch.provider import ptau
+    from nova_tpu_torch.provider.engines import Bn256EngineIPA, GrumpkinEngine
+    from nova_tpu_torch.provider.hyperkzg import EvaluationEngine as KZG
+    from nova_tpu_torch.provider.poseidon import PoseidonROConstants
+
+    power = REHEARSE_PTAU_POWER if args.rehearse else PTAU_POWER
+    log_cons = REHEARSE_FOLD_LOG_CONS if args.rehearse else FOLD_LOG_CONS
+    reps = 1 if args.rehearse else 5
+    log(f"== phase 9: BN254/Grumpkin with HyperKZG (ptau power {power}, primary "
+        f"2^{log_cons} constraints, {KZG_STEPS} prove_steps)")
+    if not native.available():
+        raise PhaseError("the native host binding did not build (native/nova_native.cpp)")
+
+    # the ptau file: written once under the git-ignored build directory
+    d = os.path.join(native.BUILD_ROOT, "ptau")
+    path = os.path.join(d, f"ppot_pruned_{power:02d}.ptau")
+    t0 = time.perf_counter()
+    wrote = not os.path.exists(path)
+    if wrote:
+        os.makedirs(d, exist_ok=True)
+        r = bn254.scalar.p
+        tau = int.from_bytes(np.random.default_rng(SEED).bytes(32), "little") % r
+        tmp = f"{path}.{os.getpid()}.tmp"
+        ptau.write_test_ptau(tmp, tau, power)
+        os.replace(tmp, path)
+    ptau_s = time.perf_counter() - t0
+    log(f"ptau: {'wrote' if wrote else 'reused'} {os.path.relpath(path)} "
+        f"({os.path.getsize(path)} B) in {ptau_s:.1f} s")
+
+    # the squaring chain that pads the BN254 primary to 2^log_cons
+    cs = ShapeCS(Bn256EngineIPA.scalar)
+    NovaAugmentedCircuit(GrumpkinEngine, True, None, TrivialCircuit(),
+                         PoseidonROConstants(GrumpkinEngine.base)).synthesize(cs)
+    base = cs.r1cs_shape().num_cons
+    squares = (1 << log_cons) - base
+    circuit = square_chain(squares)
+    t0 = time.perf_counter()
+    pp = PublicParams.setup_with_ptau_dir(Bn256EngineIPA, GrumpkinEngine, circuit, d,
+                                          device=dev)
+    setup_s = time.perf_counter() - t0
+    log(f"setup_with_ptau_dir: the trivial BN254 primary has {base} constraints; "
+        f"constraints {pp.num_constraints()}, variables {pp.num_variables()}, keys "
+        f"{len(pp.ck_primary)}/{len(pp.ck_secondary)} on {pp.ck_primary.device}, "
+        f"{setup_s:.1f} s")
+    if pp.num_constraints()[0] != 1 << log_cons or len(pp.ck_primary) != 1 << log_cons:
+        raise PhaseError(f"primary {pp.num_constraints()[0]} constraints, "
+                         f"key {len(pp.ck_primary)}: 2^{log_cons} expected")
+
+    z0 = [2]
+    os.environ["NOVA_PROFILE"] = "1"
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rs = RecursiveSNARK.new(pp, circuit, z0)
+    sync(torch)
+    new_s = time.perf_counter() - t0
+    step_s, step_launches, step_phases = [], [], []
+    for _ in range(KZG_STEPS):
+        before = dict(_build.LAUNCHES)
+        profiling.global_reset()
+        t0 = time.perf_counter()
+        rs.prove_step(pp, circuit)
+        sync(torch)
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(launch_delta(_build, before))
+        step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
+    t0 = time.perf_counter()
+    out = rs.verify(pp, KZG_STEPS, z0)
+    sync(torch)
+    verify_s = time.perf_counter() - t0
+    r = bn254.scalar.p
+    want = pow(z0[0], pow(2, squares * KZG_STEPS, r - 1), r)
+    if out != [want]:
+        raise PhaseError(f"verify returned {out}, expected [{want}]")
+    log(f"new {new_s:.2f} s; prove_step s {[round(t, 3) for t in step_s]}; verify "
+        f"{verify_s:.2f} s == z0^(2^({squares} * {KZG_STEPS})) mod r")
+    log("replayed prove_step phases (ms): " + json.dumps(step_phases[2:]))
+
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    pk, vk = CompressedSNARK.setup(pp, ee1=KZG)
+    csetup_s = time.perf_counter() - t0
+    profiling.global_reset()
+    t0 = time.perf_counter()
+    snark = CompressedSNARK.prove(pp, pk, rs)
+    sync(torch)
+    prove_s = time.perf_counter() - t0
+    cphases = {k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()}
+    t0 = time.perf_counter()
+    cout = snark.verify(vk, rs.i, z0)
+    sync(torch)
+    cverify_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    compress_launches = launch_delta(_build, before)
+    del os.environ["NOVA_PROFILE"]
+    if cout != list(rs.zi):
+        raise PhaseError(f"compressed verify returned {cout}, expected {rs.zi}")
+    log(f"compression (HyperKZG primary, IPA secondary): setup {csetup_s:.2f} s, prove "
+        f"{prove_s:.2f} s, verify {cverify_s:.2f} s; phases (ms) {json.dumps(cphases)}")
+    log(f"path launches (new to compression's verify) {launches}")
+
+    # a proof with zn, or with one HyperKZG witness, changed fails
+    zn, w = list(snark.zn), snark.snark_primary.eval_arg.w
+    for what in ("zn", "w[1]"):
+        w1 = w[1]
+        if what == "zn":
+            snark.zn = [(z + 1) % r for z in zn]
+        else:
+            w[1] = w1 + w[0]
+        try:
+            snark.verify(vk, rs.i, z0)
+        except NovaError:
+            pass
+        else:
+            raise PhaseError(f"a HyperKZG proof with {what} changed verified")
+        finally:
+            snark.zn, w[1] = zn, w1
+    log("tampered proofs (zn, a HyperKZG witness) fail to verify")
+
+    # the path launched every kernel, and K3 once a window in the KZG key's
+    # window precomputes (one per window size and padded length it met)
+    fixed = list(pp.ck_primary._db._fixed) if pp.ck_primary._db is not None else []
+    k3_want = sum(msm2._num_windows2(c) - 1 for c, _ in fixed)
+    if not args.rehearse:
+        missing = [k for k in KZG_KERNELS if launches[k] == 0]
+        if missing:
+            raise PhaseError(f"kernels not launched on the KZG path: {missing}")
+        if launches["xyzz_double"] != k3_want or not k3_want:
+            raise PhaseError(f"K3 launched {launches['xyzz_double']} times on the KZG path, "
+                             f"expected once a window of the key's precomputes {fixed}: "
+                             f"{k3_want}")
+    log(f"K3: {launches['xyzz_double']} launches, one a window of the KZG key's "
+        f"precomputes (window, lanes) {fixed}")
+
+    chk = path_kernels(args, torch, dev, pp, rs, workers, reps, timed=False)
+    # each kernel's time at this path's shapes (device ms under the profiler,
+    # else CUDA events)
+    shapes = {}
+    for label, a in list(chk["seen"].items()) + [("stage", chk["stage_first"])]:
+        name = label.split("/")[0]
+        if name in shapes:
+            continue
+        fn = kernel_call(name, a)
+        t = device_ms(torch, fn, reps)
+        timer = "profiler" if torch.cuda.is_available() else "host clock"
+        if t is None:
+            t, timer = cuda_ms(torch, fn, reps), "events"
+        shapes[name] = {"rows": list(first_input(a).shape), "ms": t, "timer": timer}
+    log("kernels at the KZG path's shapes: " + json.dumps(shapes))
+
+    thr = thresholds(args, torch, dev, pp)
+    replay = step_phases[2:]
+    return {
+        "ptau_s": ptau_s, "ptau_written": wrote, "setup_s": setup_s, "new_s": new_s,
+        "base_constraints": base, "squares": squares,
+        "prove_step_all_ms": [t * 1e3 for t in step_s],
+        "phase_ms": {k: statistics.median(ph.get(k, 0.0) for ph in replay) for k in replay[0]},
+        "verify_ms": verify_s * 1e3, "compress_setup_s": csetup_s, "compress_ms": prove_s * 1e3,
+        "compress_phase_ms": cphases, "compress_verify_ms": cverify_s * 1e3,
+        "launches": launches, "launches_per_replayed_step": step_launches[2:],
+        "compress_launches": compress_launches, "k3_precomputes": fixed,
+        "kernel_errs": chk["kernel_errs"], "shape_ms": shapes, "thresholds": thr,
+    }
+
+
 def field_ubench(args, torch, dev) -> dict:
     """Phase 8: perf/ubench_field.py's benchmark on the card (its lines, the
     counts reset just before and read just after), then P1 and P2 against
@@ -1008,7 +1381,7 @@ def run(args) -> dict:
     if not args.rehearse and not torch.cuda.is_available():
         raise PhaseError("torch.cuda.is_available() is False")
     try:
-        from nova_tpu_torch import _build, native
+        from nova_tpu_torch import _build, constants, native
     except ImportError as exc:
         raise PhaseError(f"nova_tpu_torch is not importable: {exc}")
     from nova_tpu_torch.curves.spec import pallas
@@ -1050,6 +1423,11 @@ def run(args) -> dict:
     log(f"card: {smi}")
 
     # -- phase 2: the main path -------------------------------------------
+    # the card's 2^16 commit meets FOLD_DEVICE_THRESHOLD (an FVec's device
+    # route); a rehearsal lowers it to its 2^10 commit for phases 2-4
+    fold_threshold = constants.FOLD_DEVICE_THRESHOLD
+    if args.rehearse:
+        constants.FOLD_DEVICE_THRESHOLD = n
     log(f"== phase 2: main path (pallas, n = 2^{log_n}, window {c})")
     t0 = time.perf_counter()
     ck = CommitmentEngine.setup(pallas, b"bench-msm", n - 1, device=dev,
@@ -1380,10 +1758,13 @@ def run(args) -> dict:
     if args.profile:
         profile_window(torch, lambda: CommitmentEngine.commit(ck, v), reps, "commits")
 
+    constants.FOLD_DEVICE_THRESHOLD = fold_threshold
     fold = fold_step(args, torch, dev, workers, ck, scal)
     comp = compress(args, torch, dev, fold["pp"], fold["rs"])
+    kzg = kzg_path(args, torch, dev, workers)
     ubench = field_ubench(args, torch, dev)
     log("compression: " + json.dumps(comp))
+    log("KZG path: " + json.dumps(kzg))
     log("field microbenchmark: " + json.dumps(ubench))
     if not args.rehearse:
         # the bucket stage's contract: no K3 per call on any path (K3 runs
@@ -1391,9 +1772,12 @@ def run(args) -> dict:
         # 2^15-row adds of _bucket_totals), one K5 and one K2s per commit
         per_call = {"commit": msm["launches_per_msm"],
                     "msm_device2": fold["msm_device2_launches"],
-                    "compression": comp["launches"]}
+                    "compression": comp["launches"],
+                    "kzg_compression": kzg["compress_launches"]}
         for i, sl in enumerate(fold["fold"]["launches_per_replayed_step"]):
             per_call[f"replayed prove_step {i + 1}"] = sl
+        for i, sl in enumerate(kzg["launches_per_replayed_step"]):
+            per_call[f"replayed KZG prove_step {i + 1}"] = sl
         k3 = {k: v["xyzz_double"] for k, v in per_call.items() if v["xyzz_double"]}
         if k3:
             raise PhaseError(f"K3 launched per call (0 expected on every path): {k3}")
@@ -1416,6 +1800,7 @@ def run(args) -> dict:
     for name in REPLACES:
         if name == "stage":
             row = dict(fold["row"])
+            row["max_abs_err"] = max(row["max_abs_err"], kzg["kernel_errs"]["stage"])
         elif name in UBENCH_KERNELS:
             row = {k: ubench["rows"][name][k] for k in
                    ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1423,6 +1808,7 @@ def run(args) -> dict:
         else:
             ms, plain_ms, (b_ms, b_by) = timed[name]
             err = max(errs.get(name, 0), fold["kernel_errs"].get(name, 0),
+                      kzg["kernel_errs"].get(name, 0),
                       comp["k1_err"] if name == "mont_mul" else 0,
                       comp["k5_err"] if name == "bucket_reduce" else 0)
             row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -1452,12 +1838,17 @@ def run(args) -> dict:
                 "prove_step": [sl[name] for sl in fold["fold"]["launches_per_replayed_step"]],
                 "msm_device2": fold["msm_device2_launches"][name],
                 "compression": comp["launches"][name],
+                "kzg_prove_step": [sl[name] for sl in kzg["launches_per_replayed_step"]],
+                "kzg_compression": kzg["compress_launches"][name],
             },
+            "kzg_path_launches": kzg["launches"][name],
             "precompute_launches": {
                 "commit_key": msm["precompute_launches"][name],
                 "witness_key": fold["witness_precompute_launches"][name],
             },
         })
+        if name in kzg["shape_ms"]:
+            rows[-1]["kzg_shape_ms"] = kzg["shape_ms"][name]
     return {"smi": smi, "kernels": rows, "msm": msm}
 
 

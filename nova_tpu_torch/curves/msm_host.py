@@ -98,11 +98,18 @@ def _window_for(n: int) -> int:
 
 
 def msm(scalars: Sequence[int], bases: Sequence[AffinePoint], window: int = None) -> AffinePoint:
-    """Windowed Pippenger (host, pure Python) of non-negative scalars."""
+    """Windowed Pippenger (host). The C++ kernel of the native binding takes
+    more than 8 bases when it is built; the pure-Python version below takes
+    non-negative scalars."""
     assert len(scalars) == len(bases)
     if not bases:
         raise ValueError("empty msm")
     curve = bases[0].curve
+    if len(bases) > 8:
+        from nova_tpu_torch import native
+
+        if native.available():
+            return native.msm(list(scalars), list(bases))
     if len(bases) <= 8:
         return msm_naive(scalars, bases)
     p = curve.base.p

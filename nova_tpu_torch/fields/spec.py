@@ -71,6 +71,11 @@ class FieldSpec:
     def inv(self, a: int) -> int:
         if a % self.p == 0:
             raise ZeroDivisionError(f"inverse of 0 in {self.name}")
+        if self.p.bit_length() <= 256 and self.p & 1:
+            from nova_tpu_torch import native  # native imports this module
+
+            if native.available():
+                return native.inv_mod(self.p, a)
         return pow(a, -1, self.p)
 
     def pow(self, a: int, e: int) -> int:

@@ -22,6 +22,7 @@ from nova_tpu_torch.provider.poseidon import (
     PoseidonConstants,
     PoseidonROConstants,
     io_pattern_value,
+    native_ctx,
 )
 
 
@@ -170,8 +171,16 @@ def _permutation_witness(consts, in_vals, compact, p):
     quintic sbox, plus the compact-mode ensure_allocated re-allocations).
     The reference ships the same idea for its hot gadget
     (frontend/gadgets/poseidon/circuit2_witness.rs); here it collapses the
-    tape's per-node closure chains into one pass per permutation.
+    tape's per-node closure chains into one native pass per permutation.
     """
+    h = native_ctx(consts)
+    if h is not None:
+        from nova_tpu_torch import native
+
+        return native.poseidon_permute_witness(
+            h, p, list(in_vals), consts.width, consts.full_rounds,
+            consts.partial_rounds, compact,
+        )
     st = list(in_vals)
     width = len(st)
     allocs = []
@@ -287,7 +296,7 @@ class PoseidonCircuit:
             and cs.is_witness_generator()
             and not os.environ.get("NOVA_NO_POSEIDON_FAST")
         ):
-            # one flat pass per permutation; tape entries index
+            # one flat native pass per permutation; tape entries index
             # into its (epoch-memoized) result instead of chaining
             # per-node closures
             p = cs.field.p

@@ -90,19 +90,39 @@ def commitment_key(curve, rows, device=None):
     return CommitmentKey(curve, gens[1:], gens[0], device=resolve(device))
 
 
+def kzg_commitment_key(rows, tau_H, device=None):
+    """A HyperKZG (powers-of-tau) key over BN254: `rows` as for
+    commitment_key (row 0 the blinding generator h, then tau^i * G), and
+    `tau_H` the G2 point tau * H as ``((x0, x1), (y0, y1))`` ints. The key
+    carries `tau_H` as a ptau-loaded key does."""
+    from nova_tpu_torch.curves.pairing import G2Point
+    from nova_tpu_torch.curves.spec import bn254
+
+    (x0, x1), (y0, y1) = tau_H
+    g2 = G2Point((int(x0), int(x1)), (int(y0), int(y1)))
+    if not g2.is_on_curve():
+        raise ValueError("tau_H is not on the G2 curve")
+    ck = commitment_key(bn254, rows, device)
+    ck._tau_H = g2
+    return ck
+
+
 def public_params(engine1, engine2, F_arity: int, shape1: dict, rows1,
-                  shape2: dict, rows2, device=None):
+                  shape2: dict, rows2, device=None, tau_H1=None):
     """The port's PublicParams from the JAX package's, through its own
     constructor: `shape1`/`shape2` are dicts of r1cs_shape's arguments
     (num_cons, num_vars, num_io, A, B, C) and `rows1`/`rows2` the key rows
-    of commitment_key, primary first; both keys are put on `device`."""
+    of commitment_key, primary first; both keys are put on `device`. With
+    `tau_H1` the primary key is a HyperKZG key (kzg_commitment_key)."""
     from nova_tpu_torch.nova.ivc import PublicParams
 
     def shape(d, engine):
         return r1cs_shape(engine.scalar, d["num_cons"], d["num_vars"], d["num_io"], d)
 
+    ck1 = (commitment_key(engine1.curve, rows1, device) if tau_H1 is None
+           else kzg_commitment_key(rows1, tau_H1, device))
     return PublicParams(
         engine1, engine2, F_arity,
-        shape(shape1, engine1), commitment_key(engine1.curve, rows1, device),
+        shape(shape1, engine1), ck1,
         shape(shape2, engine2), commitment_key(engine2.curve, rows2, device),
     )

@@ -9,8 +9,8 @@ source, the compiler or the build is missing; callers then keep their
 pure-Python branches (``chip_smoke.py`` requires it to be True).
 
 All boundary values are numpy (n, 4) uint64 little-endian limb arrays in
-normal (non-Montgomery) form. Only the entry points the port calls are
-bound here.
+normal (non-Montgomery) form. Every entry point of the JAX package's
+binding is bound here, with the same signatures and marshalling.
 """
 
 from __future__ import annotations
@@ -46,6 +46,22 @@ _SIZE = ctypes.c_size_t
 # entry point -> arguments after the field context
 _SIGNATURES = {
     "vec_mulmod": [_u64p, _u64p, _u64p, _SIZE],
+    "vec_addmod": [_u64p, _u64p, _u64p, _SIZE],
+    "vec_invmod": [_u64p, _u64p, _SIZE],
+    "vec_cross": [_u64p, _u64p, _u64p, _u64p, _u64p, _u64p, _SIZE],
+    "vec_cross_relaxed": [_u64p] * 11 + [_SIZE],
+    "vec_from_mont": [_u64p, _u64p, _SIZE],
+    "inv_mod": [_u64p, _u64p],
+    "neutron_round": [_u64p] * 8 + [_SIZE, _SIZE, _u64p],
+    "sumcheck_cubicprod_round": [_u64p, _u64p, _u64p, _SIZE, _u64p],
+    "sumcheck_quadeval_round": [_u64p, _u64p, _SIZE, _u64p],
+    "sumcheck_linear_round": [_u64p, _u64p, _SIZE, _u64p],
+    "poly_eval_horner": [_u64p, _SIZE, _u64p, _u64p],
+    "poly_div_linear": [_u64p, _SIZE, _u64p, _u64p],
+    "ntt": [_u64p, _SIZE, _u64p, ctypes.c_int],
+    "batch_add_seg": [_u64p, _u64p, _u8p, _u32p, _u32p, _SIZE, _u64p, _u64p, _u8p],
+    "ec_fixed_mul_many": [_u64p, _u64p, _u64p, _SIZE, _u64p, _u64p, _u8p],
+    "ec_mul_many": [_u64p, _u64p, _u8p, _u64p, _SIZE, _u64p, _u64p, _u8p],
     "vec_axpy": [_u64p, _u64p, _u64p, _u64p, _SIZE],
     "vec_fold": [_u64p, _u64p, _u64p, _u64p, _u64p, _SIZE],
     "vec_dot": [_u64p, _u64p, _u64p, _SIZE],
@@ -108,6 +124,18 @@ def _load() -> Optional[ctypes.CDLL]:
         fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = [ctypes.c_void_p] + extra
+    lib.vec_sat_check.restype = _SIZE
+    lib.vec_sat_check.argtypes = [ctypes.c_void_p] + [_u64p] * 5 + [_SIZE]
+    lib.keccak_f1600.restype = None
+    lib.keccak_f1600.argtypes = [_u64p]
+    lib.poseidon_ctx_new.restype = ctypes.c_void_p
+    lib.poseidon_ctx_new.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, _u64p, _SIZE, _u64p, _u64p,
+                                     _u64p, _u64p]
+    lib.poseidon_permute.restype = None
+    lib.poseidon_permute.argtypes = [ctypes.c_void_p, _u64p]
+    lib.poseidon_permute_witness.restype = _SIZE
+    lib.poseidon_permute_witness.argtypes = [ctypes.c_void_p, _u64p, _u64p, ctypes.c_int]
     return lib
 
 
@@ -353,3 +381,249 @@ def sumcheck_cubic_gruen_round_l(p: int, E, A, B, Cv) -> tuple:
     half = A.shape[0] // 2
     assert E.shape[0] == half
     return _round("sumcheck_cubic_gruen_round", p, 2, (E, A, B, Cv), half)
+
+
+# -- the rest of the JAX package's binding ------------------------------------
+
+def _zeros(n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    return (np.zeros((n, 4), dtype=np.uint64), np.zeros((n, 4), dtype=np.uint64),
+            np.zeros(n, dtype=np.uint8))
+
+
+def msm(scalars: Sequence[int], points) -> AffinePoint:
+    """Host Pippenger MSM in C++ (normal-form ints in and out)."""
+    curve = points[0].curve
+    assert len(scalars) == len(points)
+    return msm_cached(curve, marshal_points(points), list(scalars))
+
+
+def batch_add_seg(curve, arrays, order, seg_off) -> List[AffinePoint]:
+    """Segmented batch add over pre-marshalled points: result s is the sum
+    of arrays[order[seg_off[s]:seg_off[s+1]]], all segments reduced together
+    by the shared-inversion batched-affine pair scheduler (the reference's
+    batch_add, src/provider/msm.rs:689-770)."""
+    xs, ys, inf = arrays
+    order_arr = _c(np.asarray(order, dtype=np.uint32))
+    off_arr = _c(np.asarray(seg_off, dtype=np.uint32))
+    nseg = off_arr.shape[0] - 1
+    assert nseg >= 1 and off_arr[-1] == order_arr.shape[0]
+    ox, oy, oinf = _zeros(nseg)
+    _get_lib().batch_add_seg(_ctx(curve.base.p), _ptr64(xs), _ptr64(ys), _ptr8(inf),
+                             order_arr.ctypes.data_as(_u32p),
+                             off_arr.ctypes.data_as(_u32p), nseg,
+                             _ptr64(ox), _ptr64(oy), _ptr8(oinf))
+    return _points(curve, ox, oy, oinf)
+
+
+def ec_fixed_mul_many(base, scalars) -> List[AffinePoint]:
+    """[k * base for k in scalars] with one shared fixed-base window table
+    (reference fixed_base_exp_comb_batch, hyperkzg.rs:443)."""
+    curve = base.curve
+    n = len(scalars)
+    gx, gy = ints_to_limbs([base.x]), ints_to_limbs([base.y])
+    ks = ints_to_limbs([s % curve.scalar.p for s in scalars])
+    ox, oy, oinf = _zeros(n)
+    _get_lib().ec_fixed_mul_many(_ctx(curve.base.p), _ptr64(gx), _ptr64(gy), _ptr64(ks),
+                                 n, _ptr64(ox), _ptr64(oy), _ptr8(oinf))
+    return _points(curve, ox, oy, oinf)
+
+
+def ec_mul_many(points, scalars: Sequence[int]) -> List[AffinePoint]:
+    """[k_i * P_i]."""
+    curve = points[0].curve
+    n = len(points)
+    xs, ys, inf = marshal_points(points)
+    ks = ints_to_limbs([s % curve.scalar.p for s in scalars])
+    ox, oy, oinf = _zeros(n)
+    _get_lib().ec_mul_many(_ctx(curve.base.p), _ptr64(xs), _ptr64(ys), _ptr8(inf),
+                           _ptr64(ks), n, _ptr64(ox), _ptr64(oy), _ptr8(oinf))
+    return _points(curve, ox, oy, oinf)
+
+
+def vec_mulmod(p: int, a: Sequence[int], b: Sequence[int]) -> List[int]:
+    return limbs_to_ints(vec_mulmod_l(p, ints_to_limbs([x % p for x in a]),
+                                      ints_to_limbs([x % p for x in b])))
+
+
+def vec_invmod(p: int, a: Sequence[int]) -> List[int]:
+    n = len(a)
+    aa = ints_to_limbs([x % p for x in a])
+    out = np.zeros((n, 4), dtype=np.uint64)
+    _get_lib().vec_invmod(_ctx(p), _ptr64(aa), _ptr64(out), n)
+    return limbs_to_ints(out)
+
+
+def vec_addmod_l(p: int, aa: np.ndarray, bb: np.ndarray) -> np.ndarray:
+    n = aa.shape[0]
+    out = np.zeros((n, 4), dtype=np.uint64)
+    _get_lib().vec_addmod(_ctx(p), _ptr64(_c(aa)), _ptr64(_c(bb)), _ptr64(out), n)
+    return out
+
+
+def vec_cross_l(p: int, az, bz, cz, e, u: int) -> np.ndarray:
+    """The cross-term az*bz - u*cz - e, elementwise."""
+    n = az.shape[0]
+    out = np.zeros((n, 4), dtype=np.uint64)
+    uu = ints_to_limbs([u % p])
+    _get_lib().vec_cross(_ctx(p), *(_ptr64(_c(t)) for t in (az, bz, cz, e)),
+                         _ptr64(uu), _ptr64(out), n)
+    return out
+
+
+def vec_cross_relaxed_l(p: int, az1, bz1, cz1, az2, bz2, cz2, e1, e2,
+                        u1: int, u2: int) -> np.ndarray:
+    n = az1.shape[0]
+    out = np.zeros((n, 4), dtype=np.uint64)
+    uu1, uu2 = ints_to_limbs([u1 % p]), ints_to_limbs([u2 % p])
+    _get_lib().vec_cross_relaxed(
+        _ctx(p), *(_ptr64(_c(t)) for t in (az1, bz1, cz1, az2, bz2, cz2, e1, e2)),
+        _ptr64(uu1), _ptr64(uu2), _ptr64(out), n)
+    return out
+
+
+def vec_sat_check_l(p: int, az, bz, cz, e, u: int) -> int:
+    """Count of rows where az*bz - u*cz - e != 0."""
+    uu = ints_to_limbs([u % p])
+    return int(_get_lib().vec_sat_check(_ctx(p), *(_ptr64(_c(t)) for t in (az, bz, cz, e)),
+                                        _ptr64(uu), az.shape[0]))
+
+
+def vec_from_mont_l(p: int, aa: np.ndarray) -> np.ndarray:
+    """Montgomery -> normal form on (n, 4) uint64 limbs (one REDC each)."""
+    a = _c(aa)
+    out = np.empty_like(a)
+    _get_lib().vec_from_mont(_ctx(p), _ptr64(a), _ptr64(out), a.shape[0])
+    return out
+
+
+_inv_in = np.zeros(4, dtype=np.uint64)
+_inv_out = np.zeros(4, dtype=np.uint64)
+_inv_ptrs = None
+
+
+def inv_mod(p: int, a: int) -> int:
+    """Scalar modular inverse through the native kernel (xgcd). It reuses
+    static buffers: single-threaded, like the rest of the frontend."""
+    global _inv_ptrs
+    ctx = _ctx(p)
+    if _inv_ptrs is None:
+        _inv_ptrs = (_ptr64(_inv_in), _ptr64(_inv_out))
+    a %= p
+    _inv_in[0] = a & 0xFFFFFFFFFFFFFFFF
+    _inv_in[1] = (a >> 64) & 0xFFFFFFFFFFFFFFFF
+    _inv_in[2] = (a >> 128) & 0xFFFFFFFFFFFFFFFF
+    _inv_in[3] = a >> 192
+    _get_lib().inv_mod(ctx, *_inv_ptrs)
+    o = _inv_out
+    return int(o[0]) | (int(o[1]) << 64) | (int(o[2]) << 128) | (int(o[3]) << 192)
+
+
+def sumcheck_cubicprod_round_l(p: int, A, B, Cv) -> tuple:
+    return _round("sumcheck_cubicprod_round", p, 3, (A, B, Cv), A.shape[0] // 2)
+
+
+def sumcheck_quadeval_round_l(p: int, A, B) -> tuple:
+    return _round("sumcheck_quadeval_round", p, 2, (A, B), A.shape[0] // 2)
+
+
+def sumcheck_linear_round_l(p: int, A, B) -> tuple:
+    return _round("sumcheck_linear_round", p, 2, (A, B), A.shape[0] // 2)
+
+
+def neutron_round_l(p: int, e1, e2, Az1, Bz1, Cz1, Az2, Bz2, Cz2,
+                    left: int, right: int) -> list:
+    """Neutron NIFS 5-point round sums (before the eq factor)."""
+    out = np.zeros((5, 4), dtype=np.uint64)
+    _get_lib().neutron_round(_ctx(p), *(_ptr64(_c(t)) for t in
+                                        (e1, e2, Az1, Bz1, Cz1, Az2, Bz2, Cz2)),
+                             left, right, _ptr64(out))
+    return limbs_to_ints(out)
+
+
+def poly_eval_horner_l(p: int, f: np.ndarray, u: int) -> int:
+    """f(u) by Horner over a limb coefficient array (f[0] lowest degree)."""
+    ff = _c(f)
+    ua = ints_to_limbs([u % p])
+    out = np.zeros((1, 4), dtype=np.uint64)
+    _get_lib().poly_eval_horner(_ctx(p), _ptr64(ff), ff.shape[0], _ptr64(ua), _ptr64(out))
+    return limbs_to_ints(out)[0]
+
+
+def poly_div_linear_l(p: int, f: np.ndarray, u: int) -> np.ndarray:
+    """Quotient h = f // (x - u) (synthetic division), limb arrays."""
+    ff = _c(f)
+    n = ff.shape[0]
+    assert n >= 2
+    ua = ints_to_limbs([u % p])
+    out = np.zeros((n - 1, 4), dtype=np.uint64)
+    _get_lib().poly_div_linear(_ctx(p), _ptr64(ff), n, _ptr64(ua), _ptr64(out))
+    return out
+
+
+def ntt_l(p: int, a: np.ndarray, root: int, invert: bool = False) -> np.ndarray:
+    """Radix-2 NTT over 2^k limb entries, on a copy; `root` is a primitive
+    n-th root of unity. invert=True includes the 1/n scale."""
+    aa = _c(a).copy()
+    n = aa.shape[0]
+    assert n & (n - 1) == 0
+    ra = ints_to_limbs([root % p])
+    _get_lib().ntt(_ctx(p), _ptr64(aa), n, _ptr64(ra), 1 if invert else 0)
+    return aa
+
+
+def keccak_f1600_lanes(lanes):
+    """keccak-f[1600] on a 5x5 lane list ([x][y]) through the C kernel."""
+    a = np.array([lanes[x][y] for x in range(5) for y in range(5)], dtype=np.uint64)
+    _get_lib().keccak_f1600(_ptr64(a))
+    return [[int(a[x * 5 + y]) for y in range(5)] for x in range(5)]
+
+
+_poseidon_ctx_cache: dict = {}
+
+
+def poseidon_ctx(p: int, width: int, half_full: int, partial: int,
+                 crc, m, pre_sparse, sparse_matrixes):
+    """Native Poseidon permutation context. Contexts live as long as the
+    process; they are cached by a key drawn from the constants, matrices
+    included, so bundles that differ only there do not share one."""
+    key = (p, width, half_full, partial, len(crc), crc[0], crc[-1],
+           m[0][0], pre_sparse[0][0], len(sparse_matrixes),
+           sparse_matrixes[0][0][0] if sparse_matrixes else 0)
+    h = _poseidon_ctx_cache.get(key)
+    if h is not None:
+        return h
+    crc_l = ints_to_limbs([x % p for x in crc])
+    m_l = ints_to_limbs([m[i][j] % p for i in range(width) for j in range(width)])
+    pre_l = ints_to_limbs([pre_sparse[i][j] % p for i in range(width) for j in range(width)])
+    w_hats = [x % p for w_hat, _ in sparse_matrixes for x in w_hat]
+    v_rests = [x % p for _, v_rest in sparse_matrixes for x in v_rest]
+    wh_l = ints_to_limbs(w_hats) if w_hats else np.zeros((1, 4), dtype=np.uint64)
+    vr_l = ints_to_limbs(v_rests) if v_rests else np.zeros((1, 4), dtype=np.uint64)
+    h = _get_lib().poseidon_ctx_new(_ctx(p), width, half_full, partial, _ptr64(crc_l),
+                                    len(crc), _ptr64(m_l), _ptr64(pre_l), _ptr64(wh_l),
+                                    _ptr64(vr_l))
+    _poseidon_ctx_cache[key] = h
+    return h
+
+
+def poseidon_permute(handle, p: int, elements, width: int = None) -> list:
+    if width is not None:
+        # the C kernel reads and writes exactly `width` rows
+        assert len(elements) == width, (len(elements), width)
+    el = ints_to_limbs([x % p for x in elements])
+    _get_lib().poseidon_permute(handle, _ptr64(el))
+    return limbs_to_ints(el)
+
+
+def poseidon_permute_witness(handle, p: int, elements, width: int,
+                             full_rounds: int, partial: int, compact: bool) -> tuple:
+    """(final_state, alloc_values) of one permutation, the allocations in
+    the order of the circuit gadget's flat witness plan."""
+    assert len(elements) == width, (len(elements), width)
+    el = ints_to_limbs([x % p for x in elements])
+    cap = 3 * (width * full_rounds + partial) + (partial * (width - 1) if compact else 0)
+    allocs = np.zeros((cap, 4), dtype=np.uint64)
+    na = _get_lib().poseidon_permute_witness(handle, _ptr64(el), _ptr64(allocs),
+                                             1 if compact else 0)
+    assert na <= cap, (na, cap)
+    return limbs_to_ints(el), limbs_to_ints(allocs[:na])

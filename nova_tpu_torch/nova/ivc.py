@@ -2,10 +2,9 @@
 ``nova_tpu/nova/ivc.py``; reference: src/nova/mod.rs).
 
 Both commitment keys live on the device given to ``PublicParams.setup``
-(CUDA unless the caller passes another); every device route of the fold
-step (the int-scalar and fixed-base MSMs, SpMV, FVec folds) runs there.
-Not ported yet: ``setup_with_ptau_dir`` (Powers-of-Tau keys for
-HyperKZG/Mercury).
+or ``PublicParams.setup_with_ptau_dir`` (CUDA unless the caller passes
+another); every device route of the fold step (the int-scalar and
+fixed-base MSMs, SpMV, FVec folds) runs there.
 
 The two-curve cycle: the primary augmented circuit lives over E1::Scalar and
 manipulates points of E2's curve (whose base field is E1::Scalar); vice versa
@@ -31,6 +30,7 @@ from nova_tpu_torch.errors import (
     InvalidInitialInputLengthError,
     InvalidStepCircuitIOError,
     InvalidStepOutputLengthError,
+    NovaError,
     ProofVerifyError,
     TapeReplayError,
 )
@@ -131,6 +131,57 @@ class PublicParams:
         pp.digest()
         return pp
 
+    @staticmethod
+    def setup_with_ptau_dir(
+        engine1: Engine,
+        engine2: Engine,
+        c: StepCircuit,
+        ptau_dir: str,
+        ck_hint1: int = 0,
+        ck_hint2: int = 0,
+        device=None,
+    ) -> "PublicParams":
+        """Like setup(), but the primary commitment key loads from a
+        Powers-of-Tau ceremony file (for HyperKZG on a pairing-friendly
+        primary curve; src/nova/mod.rs:221-290), the smallest file in
+        `ptau_dir` that is large enough. Both keys are for `device` (CUDA
+        unless given)."""
+        from nova_tpu_torch.provider.ptau import find_ptau_file, load_ck_from_ptau
+
+        device = resolve(device)
+        F_arity = c.arity()
+        ro_consts_circuit_primary = PoseidonROConstants(engine2.base)
+        ro_consts_circuit_secondary = PoseidonROConstants(engine1.base)
+
+        cs_primary = ShapeCS(engine1.scalar)
+        NovaAugmentedCircuit(
+            engine2, True, None, c, ro_consts_circuit_primary
+        ).synthesize(cs_primary)
+        r1cs_shape_primary = cs_primary.r1cs_shape()
+        n1 = max(r1cs_shape_primary.num_cons, r1cs_shape_primary.num_vars, ck_hint1)
+        path = find_ptau_file(ptau_dir, n1)
+        if path is None:
+            raise NovaError(f"no ptau file in {ptau_dir} large enough for {n1}")
+        ck_primary = load_ck_from_ptau(path, n1, device=device)
+
+        cs_secondary = ShapeCS(engine2.scalar)
+        NovaAugmentedCircuit(
+            engine1, False, None, TrivialCircuit(), ro_consts_circuit_secondary
+        ).synthesize(cs_secondary)
+        r1cs_shape_secondary = cs_secondary.r1cs_shape()
+        ck_secondary = r1cs_shape_secondary.commitment_key(b"ck", ck_hint2, device=device)
+
+        if r1cs_shape_primary.num_io != 2 or r1cs_shape_secondary.num_io != 2:
+            raise InvalidStepCircuitIOError()
+
+        pp = PublicParams(
+            engine1, engine2, F_arity,
+            r1cs_shape_primary, ck_primary,
+            r1cs_shape_secondary, ck_secondary,
+        )
+        pp.digest()
+        return pp
+
     def digest(self) -> int:
         """SHA3 over a canonical serialization, 250 LE bits → E1::Scalar
         (src/nova/mod.rs:292-299, src/digest.rs:75-88)."""
@@ -208,18 +259,23 @@ def _tape_validate_now(step_i: int) -> bool:
 
 
 def _validate_replayed_witness(shape, U, W, which: str, device=None) -> None:
-    """SpMV residual check (Az o Bz == Cz) on a tape-generated witness: a
-    circuit whose Python control flow depends on step values replays a
-    stale trace and silently emits an invalid witness — caught here with a
-    diagnostic naming the tape discipline instead of a cryptic failure at
-    verify time. Skips the commitment re-check (already paid by the
-    caller)."""
+    """SpMV residual check (Az o Bz == Cz) on a tape-generated witness, in
+    the native binding when it is built: a circuit whose Python control
+    flow depends on step values replays a stale trace and silently emits an
+    invalid witness — caught here with a diagnostic naming the tape
+    discipline instead of a cryptic failure at verify time. Skips the
+    commitment re-check (already paid by the caller)."""
+    from nova_tpu_torch import native
+
     p = shape.field.p
-    z = list(W.W) + [1] + list(U.X)
-    Az, Bz, Cz = shape.multiply_vec(z, device)
-    bad = any(
-        a * b % p != c_ for a, b, c_ in zip(Az, Bz, Cz)
-    )
+    if native.available():
+        bad = shape._sat_limbs(W.W, 1, U.X)
+    else:
+        z = list(W.W) + [1] + list(U.X)
+        Az, Bz, Cz = shape.multiply_vec(z, device)
+        bad = any(
+            a * b % p != c_ for a, b, c_ in zip(Az, Bz, Cz)
+        )
     if bad:
         raise TapeReplayError(
             f"replayed {which} witness violates its R1CS: the step "

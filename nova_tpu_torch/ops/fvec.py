@@ -77,13 +77,26 @@ class FVec:
 
     def to_ints(self) -> List[int]:
         if self._ints is None:
-            self._ints = self.tf.unpack(self._std())
+            from nova_tpu_torch import native
+
+            if native.available():
+                self._ints = native.limbs_to_ints(self.limbs64())
+            else:
+                self._ints = self.tf.unpack(self._std())
         return self._ints
 
     def limbs64(self) -> np.ndarray:
-        """(n, 4) uint64 little-endian standard-form limbs, cached."""
+        """(n, 4) uint64 little-endian standard-form limbs, cached. With the
+        native binding the raw Montgomery limbs are copied off the device
+        and reduced on the host (one REDC each), as the JAX package does."""
         if self._limbs64 is None:
-            self._limbs64 = _u64_limbs(self._std())
+            from nova_tpu_torch import native
+
+            if native.available():
+                mont = _u64_limbs(self.m.cpu().numpy())
+                self._limbs64 = native.vec_from_mont_l(self.tf.spec.p, mont)
+            else:
+                self._limbs64 = _u64_limbs(self._std())
         return self._limbs64
 
     # -- Sequence protocol ---------------------------------------------

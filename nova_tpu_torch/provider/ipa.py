@@ -14,7 +14,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from nova_tpu_torch import constants, native
+from nova_tpu_torch import native
 from nova_tpu_torch.curves.msm_host import msm as host_msm
 from nova_tpu_torch.errors import InvalidInputLengthError, ProofVerifyError
 from nova_tpu_torch.fields.spec import FieldSpec
@@ -213,10 +213,7 @@ class InnerProductArgument:
             pos = i.bit_length() - 1
             s[i] = s[i - (1 << pos)] * r_sq[len(self.L_vec) - 1 - pos] % p
 
-        # s goes to the device MSM at or above DEVICE_THRESHOLD, else to the
-        # native host MSM (as an HVec), the JAX package's routes
-        s_vec = s if n >= constants.DEVICE_THRESHOLD else HVec(p, ints=s)
-        ck_hat_point = CommitmentEngine.commit(ck, s_vec, 0).point
+        ck_hat_point = CommitmentEngine.commit(ck, s, 0).point
         b_hat = _inner_product(field, U.b_vec, s)
 
         # P_hat = sum r_i^2 L_i + sum r_i^-2 R_i + P

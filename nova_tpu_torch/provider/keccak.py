@@ -1,6 +1,6 @@
 """Keccak family (keccak-f[1600] permutation, Keccak-256, SHAKE-256) and the
-Nova Fiat-Shamir transcript (copy of ``nova_tpu/provider/keccak.py``, with
-the pure-Python permutation).
+Nova Fiat-Shamir transcript (copy of ``nova_tpu/provider/keccak.py``; the
+permutation runs in the native binding when it is built).
 
 The transcript protocol is re-implemented from the reference semantics
 (src/provider/keccak.rs:11-200):
@@ -105,7 +105,12 @@ class KeccakSponge:
             lane = int.from_bytes(block[8 * i : 8 * i + 8], "little")
             x, y = i % 5, i // 5
             self.lanes[x][y] ^= lane
-        self.lanes = keccak_f1600(self.lanes)
+        from nova_tpu_torch import native
+
+        if native.available():
+            self.lanes = native.keccak_f1600_lanes(self.lanes)
+        else:
+            self.lanes = keccak_f1600(self.lanes)
 
     def _squeeze(self, n: int) -> bytes:
         # pad10*1 with domain byte

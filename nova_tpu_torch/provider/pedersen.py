@@ -7,13 +7,14 @@ generator, lifted to the curve with the halo2curves hash_to_curve map.
 Keys are cached on disk in the port's own cache directory, in the same
 ``.npy`` row format as the JAX package.
 
-Routing: an ``FVec`` always takes the fixed-base device MSM
-(``msm_device3_mont``) on the device it lives on; an ``HVec`` takes the
-native host MSM when the native binding is available; a plain int list of
-at least DEVICE_THRESHOLD entries takes the int-scalar device MSM
-(``msm_device2``) on the key's device, a shorter one the pure-Python host
-Pippenger; ``commit_small`` sends long lists to the device MSM with a bit
-bound.
+Routing, as the JAX package's (without its mesh branch): an ``FVec`` of at
+least FOLD_DEVICE_THRESHOLD entries takes the fixed-base device MSM
+(``msm_device3_mont``) on the device it lives on, a shorter one is brought
+to the host as ints; an ``HVec`` takes the native host MSM when the native
+binding is available; an int list of at least DEVICE_THRESHOLD entries
+takes the int-scalar device MSM (``msm_device2``) on the key's device, one
+of 16 or more the native host MSM, a shorter one the host Pippenger;
+``commit_small`` sends long lists to the device MSM with a bit bound.
 """
 
 from __future__ import annotations
@@ -293,21 +294,23 @@ class CommitmentEngine:
         if isinstance(v, HVec) and native.available():
             return CommitmentEngine.commit_limbs(ck, v.limbs64(), r)
         if isinstance(v, FVec):
-            from nova_tpu_torch.ops.msm3 import msm_device3_mont
+            if len(v) >= constants.FOLD_DEVICE_THRESHOLD:
+                from nova_tpu_torch.ops.msm3 import msm_device3_mont
 
-            if len(v) == 0:
-                return _with_blind(ck, AffinePoint.identity(ck.curve), r)
-            acc = msm_device3_mont(v.m, ck.device_bases2(len(v)))
-            return _with_blind(ck, acc, r)
+                return _with_blind(ck, msm_device3_mont(v.m, ck.device_bases2(len(v))), r)
+            v = v.to_ints()
         v = list(v)
         if not v:
-            return _with_blind(ck, AffinePoint.identity(ck.curve), r)
-        if len(v) >= constants.DEVICE_THRESHOLD:
+            acc = AffinePoint.identity(ck.curve)
+        elif len(v) >= constants.DEVICE_THRESHOLD:
             from nova_tpu_torch.ops.msm2 import msm_device2
 
             acc = msm_device2(v, device_bases=ck.device_bases2(len(v)), reuse=True)
-            return _with_blind(ck, acc, r)
-        return _with_blind(ck, host_msm(v, ck.ck[: len(v)]), r)
+        elif native.available() and len(v) >= 16:
+            acc = native.msm_cached(ck.curve, ck.host_arrays(len(v)), v)
+        else:
+            acc = host_msm(v, ck.ck[: len(v)])
+        return _with_blind(ck, acc, r)
 
     @staticmethod
     def commit_limbs(ck: CommitmentKey, vl, r: int = 0) -> Commitment:
@@ -330,7 +333,8 @@ class CommitmentEngine:
         from nova_tpu_torch.ops.fvec import FVec
 
         assert len(vs) == len(rs)
-        if len(vs) > 1 and all(isinstance(v, FVec) and len(v) for v in vs):
+        if len(vs) > 1 and all(isinstance(v, FVec) and len(v) >= constants.FOLD_DEVICE_THRESHOLD
+                               for v in vs):
             from nova_tpu_torch.ops.msm3 import msm_device3_mont_batch
 
             accs = msm_device3_mont_batch(

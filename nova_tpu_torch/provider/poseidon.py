@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 
@@ -323,6 +323,8 @@ class PoseidonConstants:
     pre_sparse_matrix: list
     sparse_matrixes: list  # list of (w_hat, v_rest)
     domain_tag: int  # HashType::Sponge => 0
+    # the native permutation's context, built once (native_ctx)
+    _native_ctx: object = dc_field(default=None, repr=False, compare=False)
 
     @property
     def width(self):
@@ -409,11 +411,32 @@ def api_constants(field: FieldSpec, arity: int) -> PoseidonConstants:
 # Permutation (poseidon_inner.rs, OptimizedStatic)
 # ---------------------------------------------------------------------------
 
+def native_ctx(consts: PoseidonConstants):
+    """The native binding's permutation context for `consts`, built on
+    first use and kept on the constants object; None without the binding."""
+    from nova_tpu_torch import native
+
+    if not native.available():
+        return None
+    if consts._native_ctx is None:
+        consts._native_ctx = native.poseidon_ctx(
+            consts.field.p, consts.width, consts.half_full_rounds,
+            consts.partial_rounds, consts.compressed_round_constants, consts.m,
+            consts.pre_sparse_matrix, consts.sparse_matrixes,
+        )
+    return consts._native_ctx
+
+
 def permute(consts: PoseidonConstants, elements: list) -> list:
     """One Poseidon permutation over `width` field elements, matching
     hash_optimized_static (poseidon_inner.rs:316-343)."""
     f = consts.field
     p = f.p
+    h = native_ctx(consts)
+    if h is not None:
+        from nova_tpu_torch import native
+
+        return native.poseidon_permute(h, p, elements, width=consts.width)
     width = consts.width
     crc = consts.compressed_round_constants
     el = list(elements)

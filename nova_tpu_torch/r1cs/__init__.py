@@ -5,10 +5,9 @@ Vectors are Python-int lists or device-resident FVecs at this level; the
 heavy lifting (SpMV over big shapes, commitments, folds over long vectors)
 goes to :mod:`nova_tpu_torch.ops` at or above DEVICE_THRESHOLD /
 FOLD_DEVICE_THRESHOLD, on the commitment key's device (or the device of the
-FVecs folded). The fold step's own routes take the JAX package's
-pure-Python branch where it calls its native host binding (the numbers are
-the same); the compression path's SpMV (``multiply_vec_l``) and, below
-DEVICE_THRESHOLD, its random instance are native.
+FVecs folded). Below those thresholds the satisfiability checks and the
+cross-term run in the native host binding on limb arrays, as in the JAX
+package; without the binding they keep its pure-Python branches.
 
 z layout everywhere: z = [W (num_vars), u, X (num_io)]
 (src/r1cs/mod.rs:459,504).
@@ -97,6 +96,9 @@ class SparseMatrix:
         return native.spmv_l(self.field.p, self.native_cache(), z)
 
     def multiply_vec(self, z: Sequence[int]) -> List[int]:
+        if native.available() and self.nnz > 512:
+            zl = native.ints_to_limbs([x % self.field.p for x in z])
+            return native.limbs_to_ints(self.multiply_vec_l(zl))
         p = self.field.p
         out = []
         data, indices, indptr = self.data, self.indices, self.indptr
@@ -208,19 +210,34 @@ class R1CSShape:
         )
 
     # --- satisfiability ---
+    def _sat_limbs(self, W, u: int, X, E=None) -> int:
+        """Rows of the native residual check Az*Bz - u*Cz - E != 0 (E = 0
+        when None), on z = [W, u, X] as limbs."""
+        import numpy as np
+
+        p = self.field.p
+        zl = np.vstack([_vec_limbs(W, p), native.ints_to_limbs([u % p] + [x % p for x in X])])
+        Az, Bz, Cz = self.multiply_vec_l(zl)
+        El = np.zeros_like(Az) if E is None else _vec_limbs(E, p)
+        return native.vec_sat_check_l(p, Az, Bz, Cz, El, u)
+
     def is_sat_relaxed(self, ck: CommitmentKey, U: "RelaxedR1CSInstance", W: "RelaxedR1CSWitness"):
         assert len(W.W) == self.num_vars
         assert len(W.E) == self.num_cons
         assert len(U.X) == self.num_io
         p = self.field.p
-        from nova_tpu_torch.ops.fvec import as_list
-
-        z = as_list(W.W) + [U.u] + list(U.X)
-        Az, Bz, Cz = self.multiply_vec(z, ck.device)
-        E = as_list(W.E)
-        for i in range(self.num_cons):
-            if Az[i] * Bz[i] % p != (U.u * Cz[i] + E[i]) % p:
+        if native.available():
+            if self._sat_limbs(W.W, U.u, U.X, W.E):
                 raise UnSatError("Relaxed R1CS is unsatisfiable")
+        else:
+            from nova_tpu_torch.ops.fvec import as_list
+
+            z = as_list(W.W) + [U.u] + list(U.X)
+            Az, Bz, Cz = self.multiply_vec(z, ck.device)
+            E = as_list(W.E)
+            for i in range(self.num_cons):
+                if Az[i] * Bz[i] % p != (U.u * Cz[i] + E[i]) % p:
+                    raise UnSatError("Relaxed R1CS is unsatisfiable")
         comm_W = CommitmentEngine.commit(ck, W.W, W.r_W)
         comm_E = CommitmentEngine.commit(ck, W.E, W.r_E)
         if U.comm_W != comm_W or U.comm_E != comm_E:
@@ -230,13 +247,17 @@ class R1CSShape:
         assert len(W.W) == self.num_vars
         assert len(U.X) == self.num_io
         p = self.field.p
-        from nova_tpu_torch.ops.fvec import as_list
-
-        z = as_list(W.W) + [1] + list(U.X)
-        Az, Bz, Cz = self.multiply_vec(z, ck.device)
-        for i in range(self.num_cons):
-            if Az[i] * Bz[i] % p != Cz[i]:
+        if native.available():
+            if self._sat_limbs(W.W, 1, U.X):
                 raise UnSatError("R1CS is unsatisfiable")
+        else:
+            from nova_tpu_torch.ops.fvec import as_list
+
+            z = as_list(W.W) + [1] + list(U.X)
+            Az, Bz, Cz = self.multiply_vec(z, ck.device)
+            for i in range(self.num_cons):
+                if Az[i] * Bz[i] % p != Cz[i]:
+                    raise UnSatError("R1CS is unsatisfiable")
         if U.comm_W != CommitmentEngine.commit(ck, W.W, W.r_W):
             raise UnSatError("Invalid commitment")
 
@@ -246,6 +267,24 @@ class R1CSShape:
             and self.num_cons == self.num_vars  # regular padded shape
         )
 
+    def _commit_T_limbs(self, ck, U1, W1, U2, W2, r_T, u: int, E2=None):
+        """Host-native cross-term T = Az*Bz - u*Cz - E (E = W1.E, plus W2.E
+        when relaxed) on Z = [W1.W + W2.W, u, U1.X + U2.X], committed from
+        its limbs; T comes back as an HVec."""
+        import numpy as np
+
+        from nova_tpu_torch.ops.fvec import HVec
+
+        p = self.field.p
+        Wsum = native.vec_addmod_l(p, _vec_limbs(W1.W, p), _vec_limbs(W2.W, p))
+        tail = [u] + [(x1 + x2) % p for x1, x2 in zip(U1.X, U2.X)]
+        Az, Bz, Cz = self.multiply_vec_l(np.vstack([Wsum, native.ints_to_limbs(tail)]))
+        E = _vec_limbs(W1.E, p)
+        if E2 is not None:
+            E = native.vec_addmod_l(p, E, _vec_limbs(E2, p))
+        Tl = native.vec_cross_l(p, Az, Bz, Cz, E, u)
+        return HVec(p, limbs=Tl), CommitmentEngine.commit_limbs(ck, Tl, r_T)
+
     # --- folding cross-term (src/r1cs/mod.rs:533-619, Mova §5.2 trick) ---
     def commit_T(self, ck, U1, W1, U2, W2, r_T):
         if self._fold_on_device():
@@ -254,6 +293,8 @@ class R1CSShape:
             T = commit_T_device(self, U1, W1, U2, W2, False, ck.device)
             return T, CommitmentEngine.commit(ck, T, r_T)
         p = self.field.p
+        if native.available():
+            return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + 1) % p)
         from nova_tpu_torch.ops.fvec import as_list
 
         W1W, W2W, W1E = as_list(W1.W), as_list(W2.W), as_list(W1.E)
@@ -276,6 +317,8 @@ class R1CSShape:
             T = commit_T_device(self, U1, W1, U2, W2, True, ck.device)
             return T, CommitmentEngine.commit(ck, T, r_T)
         p = self.field.p
+        if native.available():
+            return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + U2.u) % p, W2.E)
         from nova_tpu_torch.ops.fvec import as_list
 
         W1W, W2W = as_list(W1.W), as_list(W2.W)
@@ -351,22 +394,10 @@ class R1CSShape:
         r_W = secrets.randbelow(p)
         r_E = secrets.randbelow(p)
         u = Z[self.num_vars]
-        # below DEVICE_THRESHOLD the SpMV and both commits are native, as
-        # in the JAX package; at or above it they take the device routes
-        host = self.num_cons < constants.DEVICE_THRESHOLD and native.available()
-        if host:
-            AZ, BZ, CZ = (native.limbs_to_ints(v)
-                          for v in self.multiply_vec_l(native.ints_to_limbs(Z)))
-        else:
-            AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
+        AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
         E = [(az * bz - u * cz) % p for az, bz, cz in zip(AZ, BZ, CZ)]
-        if host:
-            comm_W = CommitmentEngine.commit_limbs(
-                ck, native.ints_to_limbs(Z[: self.num_vars]), r_W)
-            comm_E = CommitmentEngine.commit_limbs(ck, native.ints_to_limbs(E), r_E)
-        else:
-            comm_W = CommitmentEngine.commit(ck, Z[: self.num_vars], r_W)
-            comm_E = CommitmentEngine.commit(ck, E, r_E)
+        comm_W = CommitmentEngine.commit(ck, Z[: self.num_vars], r_W)
+        comm_E = CommitmentEngine.commit(ck, E, r_E)
         inst = RelaxedR1CSInstance(comm_W, comm_E, list(Z[self.num_vars + 1 :]), u)
         wit = RelaxedR1CSWitness(Z[: self.num_vars], r_W, E, r_E)
         return inst, wit
@@ -482,6 +513,11 @@ class RelaxedR1CSWitness:
             dev = _vec_device(self.W, self.E, W2.W, T)
             W = FVec.coerce(tf, self.W, dev).axpy(r, FVec.coerce(tf, W2.W, dev))
             E = FVec.coerce(tf, self.E, dev).axpy(r, FVec.coerce(tf, T, dev))
+        elif native.available():
+            from nova_tpu_torch.ops.fvec import HVec
+
+            W = HVec(p, limbs=native.vec_axpy_l(p, _vec_limbs(self.W, p), _vec_limbs(W2.W, p), r))
+            E = HVec(p, limbs=native.vec_axpy_l(p, _vec_limbs(self.E, p), _vec_limbs(T, p), r))
         else:
             from nova_tpu_torch.ops.fvec import as_list
 
@@ -506,6 +542,12 @@ class RelaxedR1CSWitness:
             E = FVec.coerce(tf, self.E, dev).axpy2(
                 r, FVec.coerce(tf, T, dev), r2, FVec.coerce(tf, W2.E, dev)
             )
+        elif native.available():
+            from nova_tpu_torch.ops.fvec import HVec
+
+            W = HVec(p, limbs=native.vec_axpy_l(p, _vec_limbs(self.W, p), _vec_limbs(W2.W, p), r))
+            El = native.vec_axpy_l(p, _vec_limbs(self.E, p), _vec_limbs(T, p), r)
+            E = HVec(p, limbs=native.vec_axpy_l(p, El, _vec_limbs(W2.E, p), r2))
         else:
             from nova_tpu_torch.ops.fvec import as_list
 
@@ -532,6 +574,22 @@ class RelaxedR1CSWitness:
                  if isinstance(self.E, FVec)
                  else list(self.E) + [0] * (S.num_cons - len(self.E))),
                 self.r_E,
+            )
+        from nova_tpu_torch.ops.fvec import HVec
+
+        if isinstance(self.W, HVec) or isinstance(self.E, HVec):
+            import numpy as np
+
+            p = self.W.p if isinstance(self.W, HVec) else self.E.p
+
+            def padv(v, n):
+                l = _vec_limbs(v, p)
+                if l.shape[0] < n:
+                    l = np.vstack([l, np.zeros((n - l.shape[0], 4), dtype=np.uint64)])
+                return HVec(p, limbs=l)
+
+            return RelaxedR1CSWitness(
+                padv(self.W, S.num_vars), self.r_W, padv(self.E, S.num_cons), self.r_E,
             )
         W = list(self.W) + [0] * (S.num_vars - len(self.W))
         E = list(self.E) + [0] * (S.num_cons - len(self.E))

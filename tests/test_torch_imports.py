@@ -43,6 +43,8 @@ def test_import_leaves_jax_and_nova_tpu_out():
         "import nova_tpu_torch.native, nova_tpu_torch.spartan, nova_tpu_torch.spartan.snark\n"
         "import nova_tpu_torch.ops.sumcheck, nova_tpu_torch.provider.ipa\n"
         "import nova_tpu_torch.nova.compressed, nova_tpu_torch.perf.ubench_field\n"
+        "import nova_tpu_torch.curves.pairing, nova_tpu_torch.provider.ptau\n"
+        "import nova_tpu_torch.provider.hyperkzg, nova_tpu_torch.curves.msm_host\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nova_tpu' or m.startswith('nova_tpu.')]\n"
         "assert not bad, bad\n"
@@ -94,6 +96,11 @@ def test_entry_points_default_to_cuda():
         DevicePoly(pallas.scalar, [1, 2])
     with pytest.raises(RuntimeError, match="CUDA"):
         ubench_field.inputs(8)
+    from nova_tpu_torch.nova.ivc import PublicParams
+    from nova_tpu_torch.provider.engines import Bn256EngineIPA, GrumpkinEngine
+
+    with pytest.raises(RuntimeError, match="CUDA"):  # before any file is read
+        PublicParams.setup_with_ptau_dir(Bn256EngineIPA, GrumpkinEngine, None, ROOT)
     v = FVec.from_ints(pallas.scalar, [1, 2, 3], device="cpu")
     assert v.device.type == "cpu" and v.to_ints() == [1, 2, 3]
 
