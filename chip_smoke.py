@@ -91,9 +91,8 @@ result line):
    must have launched, and K3 once a window of the KZG key's precomputes;
    proofs with zn or a HyperKZG witness changed must fail; phase 6's
    kernel checks on this path's BN254 inputs (bitwise) and each kernel
-   timed there; then the routing thresholds re-measured at n = 2^10 ...
-   2^17 (the native host MSM against msm_device2 and against
-   msm_device3_mont, the native cross-term against commit_T_device);
+   timed there (the routing thresholds are timed by
+   nova_tpu_torch/perf/thresholds.py);
 8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
    ITERS = 20) with the counts reset just before and read just after; P1
    and P2 (one kernel, two limb layouts) against their plain versions
@@ -679,16 +678,55 @@ def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool)
             "precompute": precompute, "commit_T_ms": t_ms}
 
 
+def drive_steps(torch, pp, circuit, steps: int, squares: int, modulus: int) -> dict:
+    """RecursiveSNARK.new on z0 = [2], `steps` prove_steps (each timed, by
+    phase too, with its launches), then verify, which must return
+    z0^(2^(squares * steps)) mod `modulus`. The counts are reset just
+    before new; NOVA_PROFILE must be set."""
+    from nova_tpu_torch import _build, profiling
+    from nova_tpu_torch.nova.ivc import RecursiveSNARK
+
+    z0 = [2]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rs = RecursiveSNARK.new(pp, circuit, z0)
+    sync(torch)
+    new_s = time.perf_counter() - t0
+    step_s, step_launches, step_phases = [], [], []
+    for _ in range(steps):
+        before = dict(_build.LAUNCHES)
+        profiling.global_reset()
+        t0 = time.perf_counter()
+        rs.prove_step(pp, circuit)
+        sync(torch)
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(launch_delta(_build, before))
+        step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    out = rs.verify(pp, steps, z0)
+    sync(torch)
+    verify_s = time.perf_counter() - t0
+    want = pow(z0[0], pow(2, squares * steps, modulus - 1), modulus)
+    if out != [want]:
+        raise PhaseError(f"verify returned {out}, expected [{want}]")
+    log(f"new {new_s:.2f} s; prove_step s {[round(t, 3) for t in step_s]}; verify "
+        f"{verify_s:.2f} s == z0^(2^({squares} * {steps})) mod p")
+    return {"rs": rs, "z0": z0, "new_s": new_s, "step_s": step_s,
+            "step_launches": step_launches, "step_phases": step_phases,
+            "verify_s": verify_s, "verify_launches": launch_delta(_build, before)}
+
+
 def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     """Phases 5 and 6: the fold step's main path, then its checks and
     timings. Returns the stage kernel's row fields and the fold-step
     numbers."""
     import numpy as np
 
-    from nova_tpu_torch import _build, native, profiling
+    from nova_tpu_torch import _build, native
     from nova_tpu_torch.curves.spec import pallas
     from nova_tpu_torch.fields import kernels as fk
-    from nova_tpu_torch.nova.ivc import PublicParams, RecursiveSNARK
+    from nova_tpu_torch.nova.ivc import PublicParams
     from nova_tpu_torch.ops import msm2
     from nova_tpu_torch.provider.engines import PallasEngine, VestaEngine
 
@@ -711,40 +749,15 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     if pp.num_constraints()[0] != 1 << log_cons:
         raise PhaseError(f"primary has {pp.num_constraints()[0]} constraints")
 
-    z0 = [2]
     os.environ["NOVA_PROFILE"] = "1"
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    rs = RecursiveSNARK.new(pp, circuit, z0)
-    sync(torch)
-    new_s = time.perf_counter() - t0
-    step_s, step_launches, step_phases = [], [], []
-    for _ in range(FOLD_STEPS):
-        before = dict(_build.LAUNCHES)
-        profiling.global_reset()
-        t0 = time.perf_counter()
-        rs.prove_step(pp, circuit)
-        sync(torch)
-        step_s.append(time.perf_counter() - t0)
-        step_launches.append(launch_delta(_build, before))
-        step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
-    step_stage = [sl["stage"] for sl in step_launches]
-    before = dict(_build.LAUNCHES)
-    t0 = time.perf_counter()
-    out = rs.verify(pp, FOLD_STEPS, z0)
-    sync(torch)
-    verify_s = time.perf_counter() - t0
-    verify_launches = launch_delta(_build, before)
-    launches = dict(_build.LAUNCHES)
+    run = drive_steps(torch, pp, circuit, FOLD_STEPS, squares, pallas.scalar.p)
     del os.environ["NOVA_PROFILE"]
-    log(f"new {new_s:.2f} s; prove_step s {[round(s, 3) for s in step_s]}; "
-        f"verify {verify_s:.2f} s")
+    rs, new_s, step_s = run["rs"], run["new_s"], run["step_s"]
+    step_launches, step_phases = run["step_launches"], run["step_phases"]
+    verify_s, verify_launches = run["verify_s"], run["verify_launches"]
+    launches = dict(_build.LAUNCHES)
+    step_stage = [sl["stage"] for sl in step_launches]
     log(f"fold-step launches {launches}; B6 launches per prove_step {step_stage}")
-    p = pallas.scalar.p
-    want = pow(z0[0], pow(2, squares * FOLD_STEPS, p - 1), p)
-    if out != [want]:
-        raise PhaseError(f"verify returned {out}, expected [{want}]")
-    log(f"verify == z0^(2^({squares} * {FOLD_STEPS})) mod p")
     if args.profile:
         profile_window(torch, lambda: rs.prove_step(pp, circuit), 2, "prove_steps")
     if not args.rehearse:
@@ -1044,110 +1057,6 @@ def kernel_call(name: str, args):
     return lambda: fn(*args)
 
 
-def chain_shape(field, n: int):
-    """A regular R1CS of n squares (n constraints and variables, 2 public
-    inputs): z[i+1] = z[i]^2 for i < n - 1, and z[n-1] * u = X[0]. For the
-    cross-term's routes at any power-of-two size."""
-    from nova_tpu_torch.r1cs import R1CSShape, SparseMatrix
-
-    one, ptr, cols = [1] * n, list(range(n + 1)), n + 3
-    A = SparseMatrix(field, one, list(range(n)), ptr, cols)
-    B = SparseMatrix(field, one, list(range(n - 1)) + [n], ptr, cols)
-    C = SparseMatrix(field, one, list(range(1, n)) + [n + 1], ptr, cols)
-    return R1CSShape(field, n, n, 2, A, B, C)
-
-
-def thresholds(args, torch, dev, pp) -> dict:
-    """The routing thresholds re-measured on the card at n = 2^10 ... 2^17
-    (2^10 and 2^11 in a rehearsal), on phase 9's 2^17 KZG key: ms of the
-    native host MSM against msm_device2 for an int list, of bringing an FVec
-    to the host plus the native MSM against msm_device3_mont, and of the
-    host native cross-term and its commit against commit_T_device and the
-    fixed-base MSM (median of 3 after a warm-up; host clock up to a
-    synchronise). Each pair's results are held equal."""
-    import numpy as np
-
-    from nova_tpu_torch import native
-    from nova_tpu_torch.ops import fold as fold_ops
-    from nova_tpu_torch.ops import msm2, msm3
-    from nova_tpu_torch.ops.fvec import FVec, HVec
-    from nova_tpu_torch.provider.pedersen import Commitment
-    from nova_tpu_torch.r1cs import (
-        R1CSInstance,
-        R1CSWitness,
-        RelaxedR1CSInstance,
-        RelaxedR1CSWitness,
-    )
-
-    ck = pp.ck_primary
-    curve, field = ck.curve, ck.curve.scalar
-    p = field.p
-    rng = np.random.default_rng(SEED + 9)
-    db = ck.device_bases2(len(ck.ck))
-    arrays = ck.host_arrays(len(ck.ck))
-    reps = 1 if args.rehearse else 3
-
-    def ms(fn):
-        res = fn()
-        sync(torch)
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            sync(torch)
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts), res
-
-    def rand(n):
-        raw = rng.bytes(32 * n)
-        return [int.from_bytes(raw[32 * i : 32 * i + 32], "little") % p for i in range(n)]
-
-    out = {}
-    comm = Commitment.default(curve)
-    for k in range(10, 12 if args.rehearse else 18):
-        n = 1 << k
-        scal = rand(n)
-        v = FVec.from_ints(field, scal, device=dev)
-        row = {}
-        row["int_native_ms"], a = ms(lambda: native.msm_cached(curve, arrays, scal))
-        row["int_msm_device2_ms"], b = ms(
-            lambda: msm2.msm_device2(scal, device_bases=db, reuse=True))
-        row["fvec_native_ms"], c = ms(
-            lambda: native.msm_cached(curve, arrays, FVec(v.tf, v.m).to_ints()))
-        row["fvec_msm_device3_ms"], d = ms(lambda: msm3.msm_device3_mont(v.m, db))
-        if not a == b == c == d:
-            raise PhaseError(f"threshold sweep at 2^{k}: the MSM routes disagree")
-        S = chain_shape(field, n)
-        X1, X2, (u1,) = rand(2), rand(2), rand(1)
-        W1, E1, W2 = rand(n), rand(n), rand(n)
-        U1, U2 = RelaxedR1CSInstance(comm, comm, X1, u1), R1CSInstance(comm, X2)
-        # the running witness as each route holds it, the new one as ints
-        Wh = RelaxedR1CSWitness(HVec(p, ints=W1), 0, HVec(p, ints=E1), 0)
-        Wf = RelaxedR1CSWitness(FVec.from_ints(field, W1, device=dev), 0,
-                                FVec.from_ints(field, E1, device=dev), 0)
-        W2w = R1CSWitness(W2, 0)
-        row["cross_term_native_ms"], (Th, ch) = ms(
-            lambda: S._commit_T_limbs(ck, U1, Wh, U2, W2w, 0, (u1 + 1) % p))
-
-        def device_T():
-            T = fold_ops.commit_T_device(S, U1, Wf, U2, W2w, False, dev)
-            return T, msm3.msm_device3_mont(T.m, db)
-
-        row["cross_term_device_ms"], (Td, cd) = ms(device_T)
-        if Th.to_ints() != Td.to_ints() or ch.point != cd:
-            raise PhaseError(f"threshold sweep at 2^{k}: the cross-term routes disagree")
-        out[f"2^{k}"] = row
-    cross = {}
-    for host, device in (("int_native_ms", "int_msm_device2_ms"),
-                         ("fvec_native_ms", "fvec_msm_device3_ms"),
-                         ("cross_term_native_ms", "cross_term_device_ms")):
-        faster = [k for k, r in out.items() if r[device] < r[host]]
-        cross[f"{device} < {host} from"] = faster[0] if faster else None
-    log("thresholds (ms, host clock): " + json.dumps(out))
-    log("thresholds: device route faster from " + json.dumps(cross))
-    return {"sizes": out, "crossovers": cross}
-
-
 def kzg_path(args, torch, dev, workers: int) -> dict:
     """Phase 9: BN254/Grumpkin with HyperKZG. A test ptau file (written from
     a tau drawn from SEED, or reused), PublicParams.setup_with_ptau_dir on
@@ -1157,7 +1066,7 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
     the secondary (prove timed by phase) and verify, the counts reset just
     before new and read just after compression's verify; tampered proofs;
     every kernel of the path against its plain version on this path's
-    inputs and timed there; and the routing thresholds re-measured."""
+    inputs and timed there."""
     import numpy as np
 
     from nova_tpu_torch import _build, native, profiling
@@ -1166,7 +1075,7 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
     from nova_tpu_torch.frontend.constraint_system import ShapeCS
     from nova_tpu_torch.nova.circuit import NovaAugmentedCircuit, TrivialCircuit
     from nova_tpu_torch.nova.compressed import CompressedSNARK
-    from nova_tpu_torch.nova.ivc import PublicParams, RecursiveSNARK
+    from nova_tpu_torch.nova.ivc import PublicParams
     from nova_tpu_torch.ops import msm2
     from nova_tpu_torch.provider import ptau
     from nova_tpu_torch.provider.engines import Bn256EngineIPA, GrumpkinEngine
@@ -1216,33 +1125,11 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
         raise PhaseError(f"primary {pp.num_constraints()[0]} constraints, "
                          f"key {len(pp.ck_primary)}: 2^{log_cons} expected")
 
-    z0 = [2]
     os.environ["NOVA_PROFILE"] = "1"
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    rs = RecursiveSNARK.new(pp, circuit, z0)
-    sync(torch)
-    new_s = time.perf_counter() - t0
-    step_s, step_launches, step_phases = [], [], []
-    for _ in range(KZG_STEPS):
-        before = dict(_build.LAUNCHES)
-        profiling.global_reset()
-        t0 = time.perf_counter()
-        rs.prove_step(pp, circuit)
-        sync(torch)
-        step_s.append(time.perf_counter() - t0)
-        step_launches.append(launch_delta(_build, before))
-        step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
-    t0 = time.perf_counter()
-    out = rs.verify(pp, KZG_STEPS, z0)
-    sync(torch)
-    verify_s = time.perf_counter() - t0
+    run = drive_steps(torch, pp, circuit, KZG_STEPS, squares, bn254.scalar.p)
+    rs, z0, step_s = run["rs"], run["z0"], run["step_s"]
+    step_launches, step_phases = run["step_launches"], run["step_phases"]
     r = bn254.scalar.p
-    want = pow(z0[0], pow(2, squares * KZG_STEPS, r - 1), r)
-    if out != [want]:
-        raise PhaseError(f"verify returned {out}, expected [{want}]")
-    log(f"new {new_s:.2f} s; prove_step s {[round(t, 3) for t in step_s]}; verify "
-        f"{verify_s:.2f} s == z0^(2^({squares} * {KZG_STEPS})) mod r")
     log("replayed prove_step phases (ms): " + json.dumps(step_phases[2:]))
 
     before = dict(_build.LAUNCHES)
@@ -1317,18 +1204,17 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
         shapes[name] = {"rows": list(first_input(a).shape), "ms": t, "timer": timer}
     log("kernels at the KZG path's shapes: " + json.dumps(shapes))
 
-    thr = thresholds(args, torch, dev, pp)
     replay = step_phases[2:]
     return {
-        "ptau_s": ptau_s, "ptau_written": wrote, "setup_s": setup_s, "new_s": new_s,
+        "ptau_s": ptau_s, "ptau_written": wrote, "setup_s": setup_s, "new_s": run["new_s"],
         "base_constraints": base, "squares": squares,
         "prove_step_all_ms": [t * 1e3 for t in step_s],
         "phase_ms": {k: statistics.median(ph.get(k, 0.0) for ph in replay) for k in replay[0]},
-        "verify_ms": verify_s * 1e3, "compress_setup_s": csetup_s, "compress_ms": prove_s * 1e3,
+        "verify_ms": run["verify_s"] * 1e3, "compress_setup_s": csetup_s, "compress_ms": prove_s * 1e3,
         "compress_phase_ms": cphases, "compress_verify_ms": cverify_s * 1e3,
         "launches": launches, "launches_per_replayed_step": step_launches[2:],
         "compress_launches": compress_launches, "k3_precomputes": fixed,
-        "kernel_errs": chk["kernel_errs"], "shape_ms": shapes, "thresholds": thr,
+        "kernel_errs": chk["kernel_errs"], "shape_ms": shapes,
     }
 
 
@@ -1381,7 +1267,7 @@ def run(args) -> dict:
     if not args.rehearse and not torch.cuda.is_available():
         raise PhaseError("torch.cuda.is_available() is False")
     try:
-        from nova_tpu_torch import _build, constants, native
+        from nova_tpu_torch import _build, native
     except ImportError as exc:
         raise PhaseError(f"nova_tpu_torch is not importable: {exc}")
     from nova_tpu_torch.curves.spec import pallas
@@ -1423,11 +1309,6 @@ def run(args) -> dict:
     log(f"card: {smi}")
 
     # -- phase 2: the main path -------------------------------------------
-    # the card's 2^16 commit meets FOLD_DEVICE_THRESHOLD (an FVec's device
-    # route); a rehearsal lowers it to its 2^10 commit for phases 2-4
-    fold_threshold = constants.FOLD_DEVICE_THRESHOLD
-    if args.rehearse:
-        constants.FOLD_DEVICE_THRESHOLD = n
     log(f"== phase 2: main path (pallas, n = 2^{log_n}, window {c})")
     t0 = time.perf_counter()
     ck = CommitmentEngine.setup(pallas, b"bench-msm", n - 1, device=dev,
@@ -1758,7 +1639,6 @@ def run(args) -> dict:
     if args.profile:
         profile_window(torch, lambda: CommitmentEngine.commit(ck, v), reps, "commits")
 
-    constants.FOLD_DEVICE_THRESHOLD = fold_threshold
     fold = fold_step(args, torch, dev, workers, ck, scal)
     comp = compress(args, torch, dev, fold["pp"], fold["rs"])
     kzg = kzg_path(args, torch, dev, workers)

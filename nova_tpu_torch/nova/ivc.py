@@ -260,15 +260,13 @@ def _tape_validate_now(step_i: int) -> bool:
 
 def _validate_replayed_witness(shape, U, W, which: str, device=None) -> None:
     """SpMV residual check (Az o Bz == Cz) on a tape-generated witness, in
-    the native binding when it is built: a circuit whose Python control
+    the native binding below DEVICE_THRESHOLD: a circuit whose Python control
     flow depends on step values replays a stale trace and silently emits an
     invalid witness — caught here with a diagnostic naming the tape
     discipline instead of a cryptic failure at verify time. Skips the
     commitment re-check (already paid by the caller)."""
-    from nova_tpu_torch import native
-
     p = shape.field.p
-    if native.available():
+    if shape._host_native():
         bad = shape._sat_limbs(W.W, 1, U.X)
     else:
         z = list(W.W) + [1] + list(U.X)

@@ -86,13 +86,14 @@ class FVec:
         return self._ints
 
     def limbs64(self) -> np.ndarray:
-        """(n, 4) uint64 little-endian standard-form limbs, cached. With the
-        native binding the raw Montgomery limbs are copied off the device
-        and reduced on the host (one REDC each), as the JAX package does."""
+        """(n, 4) uint64 little-endian standard-form limbs, cached. On the
+        card the product's kernel leaves the Montgomery form before the copy;
+        a CPU FVec is reduced in the native binding when it is built (one
+        REDC each), as the JAX package does."""
         if self._limbs64 is None:
             from nova_tpu_torch import native
 
-            if native.available():
+            if self.m.device.type == "cpu" and native.available():
                 mont = _u64_limbs(self.m.cpu().numpy())
                 self._limbs64 = native.vec_from_mont_l(self.tf.spec.p, mont)
             else:

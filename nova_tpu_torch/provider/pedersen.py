@@ -7,14 +7,15 @@ generator, lifted to the curve with the halo2curves hash_to_curve map.
 Keys are cached on disk in the port's own cache directory, in the same
 ``.npy`` row format as the JAX package.
 
-Routing, as the JAX package's (without its mesh branch): an ``FVec`` of at
-least FOLD_DEVICE_THRESHOLD entries takes the fixed-base device MSM
-(``msm_device3_mont``) on the device it lives on, a shorter one is brought
-to the host as ints; an ``HVec`` takes the native host MSM when the native
-binding is available; an int list of at least DEVICE_THRESHOLD entries
-takes the int-scalar device MSM (``msm_device2``) on the key's device, one
-of 16 or more the native host MSM, a shorter one the host Pippenger;
-``commit_small`` sends long lists to the device MSM with a bit bound.
+Routing: an ``FVec`` takes the fixed-base device MSM (``msm_device3_mont``)
+on the device it lives on, whatever its length (the JAX package brings one
+shorter than FOLD_DEVICE_THRESHOLD to the host; on the card the device MSM
+is the faster route at every length measured, PERF.md); an ``HVec`` takes
+the native host MSM when the native binding is available; an int list of
+at least DEVICE_THRESHOLD entries takes the int-scalar device MSM
+(``msm_device2``) on the key's device, one of 16 or more the native host
+MSM, a shorter one the host Pippenger; ``commit_small`` sends long lists
+to the device MSM with a bit bound.
 """
 
 from __future__ import annotations
@@ -294,11 +295,12 @@ class CommitmentEngine:
         if isinstance(v, HVec) and native.available():
             return CommitmentEngine.commit_limbs(ck, v.limbs64(), r)
         if isinstance(v, FVec):
-            if len(v) >= constants.FOLD_DEVICE_THRESHOLD:
-                from nova_tpu_torch.ops.msm3 import msm_device3_mont
+            from nova_tpu_torch.ops.msm3 import msm_device3_mont
 
-                return _with_blind(ck, msm_device3_mont(v.m, ck.device_bases2(len(v))), r)
-            v = v.to_ints()
+            if len(v) == 0:
+                return _with_blind(ck, AffinePoint.identity(ck.curve), r)
+            acc = msm_device3_mont(v.m, ck.device_bases2(len(v)))
+            return _with_blind(ck, acc, r)
         v = list(v)
         if not v:
             acc = AffinePoint.identity(ck.curve)
@@ -333,8 +335,7 @@ class CommitmentEngine:
         from nova_tpu_torch.ops.fvec import FVec
 
         assert len(vs) == len(rs)
-        if len(vs) > 1 and all(isinstance(v, FVec) and len(v) >= constants.FOLD_DEVICE_THRESHOLD
-                               for v in vs):
+        if len(vs) > 1 and all(isinstance(v, FVec) and len(v) for v in vs):
             from nova_tpu_torch.ops.msm3 import msm_device3_mont_batch
 
             accs = msm_device3_mont_batch(

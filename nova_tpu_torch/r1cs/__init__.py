@@ -5,9 +5,11 @@ Vectors are Python-int lists or device-resident FVecs at this level; the
 heavy lifting (SpMV over big shapes, commitments, folds over long vectors)
 goes to :mod:`nova_tpu_torch.ops` at or above DEVICE_THRESHOLD /
 FOLD_DEVICE_THRESHOLD, on the commitment key's device (or the device of the
-FVecs folded). Below those thresholds the satisfiability checks and the
+FVecs folded). Below DEVICE_THRESHOLD the satisfiability checks and the
 cross-term run in the native host binding on limb arrays, as in the JAX
-package; without the binding they keep its pure-Python branches.
+package; without the binding they keep its pure-Python branches. At or
+above it they keep the device SpMV and the device MSM, also for a shape
+that is not square (the JAX package runs those natively on the host).
 
 z layout everywhere: z = [W (num_vars), u, X (num_io)]
 (src/r1cs/mod.rs:459,504).
@@ -209,6 +211,11 @@ class R1CSShape:
             self.C.multiply_vec(z),
         )
 
+    def _host_native(self) -> bool:
+        """The satisfiability checks and the cross-term take the native host
+        binding: below DEVICE_THRESHOLD, where the SpMV stays on the host."""
+        return self.num_cons < constants.DEVICE_THRESHOLD and native.available()
+
     # --- satisfiability ---
     def _sat_limbs(self, W, u: int, X, E=None) -> int:
         """Rows of the native residual check Az*Bz - u*Cz - E != 0 (E = 0
@@ -226,7 +233,7 @@ class R1CSShape:
         assert len(W.E) == self.num_cons
         assert len(U.X) == self.num_io
         p = self.field.p
-        if native.available():
+        if self._host_native():
             if self._sat_limbs(W.W, U.u, U.X, W.E):
                 raise UnSatError("Relaxed R1CS is unsatisfiable")
         else:
@@ -247,7 +254,7 @@ class R1CSShape:
         assert len(W.W) == self.num_vars
         assert len(U.X) == self.num_io
         p = self.field.p
-        if native.available():
+        if self._host_native():
             if self._sat_limbs(W.W, 1, U.X):
                 raise UnSatError("R1CS is unsatisfiable")
         else:
@@ -293,7 +300,7 @@ class R1CSShape:
             T = commit_T_device(self, U1, W1, U2, W2, False, ck.device)
             return T, CommitmentEngine.commit(ck, T, r_T)
         p = self.field.p
-        if native.available():
+        if self._host_native():
             return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + 1) % p)
         from nova_tpu_torch.ops.fvec import as_list
 
@@ -317,7 +324,7 @@ class R1CSShape:
             T = commit_T_device(self, U1, W1, U2, W2, True, ck.device)
             return T, CommitmentEngine.commit(ck, T, r_T)
         p = self.field.p
-        if native.available():
+        if self._host_native():
             return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + U2.u) % p, W2.E)
         from nova_tpu_torch.ops.fvec import as_list
 

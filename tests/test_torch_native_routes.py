@@ -166,12 +166,12 @@ def keys():
 
 
 def test_commit_routes(route, monkeypatch, keys):
-    """An FVec of at least FOLD_DEVICE_THRESHOLD entries takes the fixed-base
-    device MSM, a shorter one the host; an int list of at least
-    DEVICE_THRESHOLD entries msm_device2, one of 16 or more the native MSM
-    (with the binding), a shorter one the host Pippenger."""
+    """An FVec takes the fixed-base device MSM on its own device whatever its
+    length (the JAX package brings one shorter than FOLD_DEVICE_THRESHOLD to
+    the host); an int list of at least DEVICE_THRESHOLD entries
+    msm_device2, one of 16 or more the native MSM (with the binding), a
+    shorter one the host Pippenger."""
     jck, tck = keys
-    monkeypatch.setattr(constants, "FOLD_DEVICE_THRESHOLD", 32)
     monkeypatch.setattr(constants, "DEVICE_THRESHOLD", 40)
     seen = {name: _counting(monkeypatch, mod, name) for mod, name in (
         (msm3, "msm_device3_mont"), (msm2, "msm_device2"), (tn, "msm_cached"))}
@@ -182,7 +182,7 @@ def test_commit_routes(route, monkeypatch, keys):
     native = route == "native"
     cases = [  # (values, as an FVec, the route it must take)
         (_rand(rng, 36), True, "msm_device3_mont"),
-        (_rand(rng, 24), True, "msm_cached" if native else "host_msm"),
+        (_rand(rng, 24), True, "msm_device3_mont"),  # below FOLD_DEVICE_THRESHOLD
         (_rand(rng, 44), False, "msm_device2"),
         (_rand(rng, 20), False, "msm_cached" if native else "host_msm"),
         (_rand(rng, 6), False, "host_msm"),  # at most 8 bases: never native
@@ -277,6 +277,79 @@ def test_cross_term_and_witness_folds(route, monkeypatch):
         padded = got.pad(tS.pad())
         assert as_list(padded.W) == as_list(want.pad(jS.pad()).W)
     assert len(calls) == (2 if route == "native" else 0)
+
+
+def _fold_pair(seed, jck):
+    """A random 64 x 48 shape in both packages, and a running and a new
+    instance-witness pair with random values (commitments arbitrary: T does
+    not read them)."""
+    from nova_tpu_torch.provider.pedersen import Commitment
+
+    jS = _random_shape(seed, nnz=700)
+    rng = np.random.default_rng(seed + 1)
+    W1, E1, W2, E2 = (_rand(rng, n) for n in (48, 64, 48, 64))
+    X1, X2 = _rand(rng, 2), _rand(rng, 2)
+    u1, u2 = _rand(rng, 2)
+    comm = JCE.commit(jck, W1)
+    tcomm = Commitment(TA(TCURVE, *comm.point.to_coordinates()[:2]))
+    j = (JRelaxedU(comm, comm, X1, u1), JRelaxedW(W1, 3, E1, 4),
+         JRelaxedU(comm, comm, X2, u2), JRelaxedW(W2, 5, E2, 6), JR1CSWitness(W2, 5))
+    t = (tr1cs.RelaxedR1CSInstance(tcomm, tcomm, X1, u1), tr1cs.RelaxedR1CSWitness(W1, 3, E1, 4),
+         tr1cs.RelaxedR1CSInstance(tcomm, tcomm, X2, u2), tr1cs.RelaxedR1CSWitness(W2, 5, E2, 6),
+         tr1cs.R1CSWitness(W2, 5))
+    return (jS, j), (port_shape(jS), t)
+
+
+@pytest.mark.parametrize("relaxed", [False, True])
+def test_cross_term_at_device_threshold(monkeypatch, keys, relaxed):
+    """At or above DEVICE_THRESHOLD (lowered to the shape's 64 rows) the
+    cross-term keeps the device SpMV and commits T with msm_device2 (their
+    plain versions on these CPU tensors), though the native binding is
+    built; T and its commitment equal the JAX package's native route."""
+    from nova_tpu_torch.ops import spmv
+
+    jck, tck = keys
+    (jS, (jU1, jW1, jU2, jW2, jwit)), (tS, (tU1, tW1, tU2, tW2, twit)) = _fold_pair(17, jck)
+    monkeypatch.setattr(constants, "DEVICE_THRESHOLD", tS.num_cons)
+    seen = {name: _counting(monkeypatch, mod, name) for mod, name in (
+        (tn, "vec_cross_l"), (tn, "msm_cached"), (spmv, "multiply_vec_device"),
+        (msm2, "msm_device2"))}
+    if relaxed:
+        T, cT = tS.commit_T_relaxed(tck, tU1, tW1, tU2, tW2, 11)
+        jT, jcT = jS.commit_T_relaxed(jck, jU1, jW1, jU2, jW2, 11)
+    else:
+        T, cT = tS.commit_T(tck, tU1, tW1, tU2, twit, 11)
+        jT, jcT = jS.commit_T(jck, jU1, jW1, jU2, jwit, 11)
+    assert {k: len(v) for k, v in seen.items()} == {
+        "vec_cross_l": 0, "msm_cached": 0, "multiply_vec_device": 1, "msm_device2": 1}
+    assert as_list(T) == as_list(jT)
+    assert cT.point.to_coordinates() == jcT.point.to_coordinates()
+
+
+def test_sat_checks_at_device_threshold(monkeypatch, keys):
+    """At or above DEVICE_THRESHOLD the satisfiability checks and the replay
+    check keep the device SpMV, though the native binding is built; an
+    unsatisfied witness still fails each."""
+    from nova_tpu_torch.ops import spmv
+
+    tS, tck = port_shape(tiny_r1cs(JPE)), keys[1]
+    tU, tW = _cubic_pair((tr1cs.R1CSWitness, tr1cs.R1CSInstance), tS, tck, 5, 21)
+    monkeypatch.setattr(constants, "DEVICE_THRESHOLD", 1)
+    sat = _counting(monkeypatch, tn, "vec_sat_check_l")
+    dev = _counting(monkeypatch, spmv, "multiply_vec_device")
+    rU = tr1cs.RelaxedR1CSInstance.from_r1cs_instance(tck.curve, tS, tU)
+    tS.is_sat(tck, tU, tW)
+    tS.is_sat_relaxed(tck, rU, tr1cs.RelaxedR1CSWitness.from_r1cs_witness(tS, tW))
+    tvalidate(tS, tU, tW, "primary", "cpu")
+    bad = tr1cs.R1CSWitness(list(tW.W), tW.r_W)
+    bad.W[0] = (bad.W[0] + 1) % P
+    with pytest.raises(UnSatError, match="unsatisfiable"):
+        tS.is_sat(tck, tU, bad)
+    with pytest.raises(UnSatError, match="unsatisfiable"):
+        tS.is_sat_relaxed(tck, rU, tr1cs.RelaxedR1CSWitness.from_r1cs_witness(tS, bad))
+    with pytest.raises(TapeReplayError):
+        tvalidate(tS, tU, bad, "primary", "cpu")
+    assert (len(sat), len(dev)) == (0, 6)
 
 
 def test_replayed_witness_check(route, monkeypatch):

@@ -54,10 +54,8 @@ def test_setup_generators_match(keys):
     assert _xy(tck.h) == _xy(jck.h)
 
 
-def test_commit_fvec_matches(keys, monkeypatch):
+def test_commit_fvec_matches(keys):
     jck, tck = keys
-    # the device MSM takes FVecs from FOLD_DEVICE_THRESHOLD entries on
-    monkeypatch.setattr(constants, "FOLD_DEVICE_THRESHOLD", 1)
     jv = JFVec.from_ints(JField(JCURVE.scalar), _scalars(1))
     want = JCE.commit(jck, jv, 5)
     got = TCE.commit(tck, interop.fvec(TCURVE.scalar, np.asarray(jv.m), "cpu"), 5)
@@ -69,7 +67,6 @@ def test_batch_commit_matches(keys, monkeypatch):
     jck, tck = keys
     vals = [_scalars(2), _scalars(3, 200)]
     want = JCE.batch_commit(jck, vals, [0, 7])
-    monkeypatch.setattr(constants, "FOLD_DEVICE_THRESHOLD", 1)
     calls = []
     real = msm3.msm_device3_mont_batch
     monkeypatch.setattr(
