@@ -2,17 +2,22 @@
 """Drive the PyTorch/CUDA port on one GPU: the device Pedersen commit, the
 IVC fold step (RecursiveSNARK.prove_step) at a 2^17-constraint primary, its
 compression (CompressedSNARK), the same on BN254/Grumpkin with a
-powers-of-tau key and HyperKZG compression, and the field microbenchmark.
+powers-of-tau key and HyperKZG and Mercury compression, its compression
+with the preprocessing Spartan (ppsnark), DirectSNARK with ppsnark on
+Pallas, and the field microbenchmark.
 
     python3 chip_smoke.py                # 2^16 commit, 2^17 fold steps
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
     python3 chip_smoke.py --rehearse     # CPU dry run at 2^10 / 2^14 (a
-                                         # power-14 ptau file, a 2^10-column
-                                         # microbenchmark), plain versions,
-                                         # no result
+                                         # power-18 ptau file, ppsnark's
+                                         # commits on the native host MSM,
+                                         # a 500-square DirectSNARK, a
+                                         # 2^10-column microbenchmark),
+                                         # plain versions, no result
 
-The test ptau file of phase 9 is written once into nova_tpu_torch/_build/ptau/
-(git-ignored) and reused by later runs; nothing is downloaded.
+The test ptau file of phases 9-10 is written once into
+nova_tpu_torch/_build/ptau/ (git-ignored) and reused by later runs; nothing
+is downloaded.
 
 Phases (each fatal; on failure the script exits non-zero and prints no
 result line):
@@ -80,8 +85,8 @@ result line):
    must give the same proof byte for byte; K1 in the device sumcheck's
    first round against its plain version (bitwise); the randomizer's W
    commit (msm_device2) against the native host MSM;
-9. BN254/Grumpkin with HyperKZG: a test ptau file at power 17 (tau drawn
-   from SEED; written once, then reused), PublicParams.setup_with_ptau_dir
+9. BN254/Grumpkin with HyperKZG: a test ptau file at power 19 (tau drawn
+   from SEED; written once, then reused; phase 10's key), PublicParams.setup_with_ptau_dir
    on CUDA with a squaring chain that pads the BN254 primary to 2^17
    constraints (its trivial augmented count read from a ShapeCS), new, 3
    prove_steps (one timed replay, by phase) and verify (z0^(2^(3 *
@@ -92,14 +97,36 @@ result line):
    proofs with zn or a HyperKZG witness changed must fail; phase 6's
    kernel checks on this path's BN254 inputs (bitwise) and each kernel
    timed there (the routing thresholds are timed by
-   nova_tpu_torch/perf/thresholds.py);
+   nova_tpu_torch/perf/thresholds.py); then CompressedSNARK with Mercury on
+   the primary (prove by phase) and verify on the same RecursiveSNARK,
+   proofs with zn or Mercury's g_zeta changed failing, and Mercury's
+   largest msm_device2 commit against the native host MSM;
+10. ppsnark on BN254/Grumpkin at phase 9's primary: setup_with_ptau_dir
+   with ck hints = ppsnark's ck_floor of the ShapeCS shapes (a 2^19 KZG
+   key, a 2^17 + 1 Grumpkin key), new, 3 prove_steps and verify, then
+   CompressedSNARK with ppsnark on both curves (HyperKZG primary, IPA
+   secondary; prove by phase: pp_outer, pp_oracles, pp_inner, pp_ee) and
+   verify, the counts reset just before new and read just after
+   compression's verify (every path kernel, K3 once a window of each
+   precompute, the 2^19 key's among them; the primary's outer sumcheck on
+   the device); proofs with zn, eval_L_row or a vk spark commitment
+   changed must fail; the outer sumcheck again through the host prover
+   (byte-equal); the spark row commit (N = 2^19) against the native host
+   MSM, with B6 in all three modes, K1, K3 and K5 against their plain
+   versions on its inputs (bitwise) and timed there; msm_device2 and the
+   window precompute at N, and the native MSM of an N-entry HVec (the
+   oracles' route), timed;
+11. DirectSNARK with ppsnark on Pallas (a 32,700-square chain: N = 2^17,
+   phase 5's key): setup (the spark commits must take msm_device2), prove,
+   verify, and a changed io failing;
 8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
    ITERS = 20) with the counts reset just before and read just after; P1
    and P2 (one kernel, two limb layouts) against their plain versions
    (bitwise) and timed beside their bound: one Montgomery product per
    column and step.
 
-Phases run in the order 1-7, 9, 8. After them, launches are checked: K3
+Phases run in the order 1-7, 9, 10, 11, 8; each header line gives the
+seconds since the start. After them, launches are checked: K3
 (a key's window precompute only) must not launch in a commit, a replayed
 prove_step (either curve cycle), an msm_device2 or a compression, and must
 launch once a window in each key's precompute
@@ -178,12 +205,16 @@ UB_LOG_N, UB_ITERS, REHEARSE_UB_LOG_N, REHEARSE_UB_ITERS = 18, 20, 10, 2
 # circuit (tests/test_ivc.py); the squaring chain adds one per square
 AUGMENTED_PRIMARY_CONS = 9818
 FOLD_STEPS = 5
-# phase 9: the test ptau file's power (2^17 G1 powers, the BN254 primary's
-# key), the prove_steps (the bump, the tape build, one timed replay), and
-# the kernels the KZG path must launch (K3 only in the key's precompute)
-PTAU_POWER, REHEARSE_PTAU_POWER = 17, 14
+# phases 9-10: the test ptau file's power (2^19 G1 powers: phase 10's
+# spark key; phase 9 reads its 2^17 key from the same file), the
+# prove_steps (the bump, the tape build, one timed replay), and the kernels
+# the KZG and ppsnark paths must launch (K3 only in a key's precompute)
+PTAU_POWER, REHEARSE_PTAU_POWER = 19, 18
 KZG_STEPS = 3
 KZG_KERNELS = ("mont_mul", "xyzz_add", "accum", "suffix_segmented", "bucket_reduce", "stage")
+# phase 11: DirectSNARK's squaring chain on Pallas (nnz <= 2^17 and
+# 2 num_vars <= 2^17, so N = 2^17 and the key is phase 5's 2^17 + 1 one)
+DIRECT_SQUARES, REHEARSE_DIRECT_SQUARES, DIRECT_LOG_N = 32700, 500, 17
 # the kernel calls phases 6 and 9 capture on their path and hold bitwise
 PATH_CHECKS = {"mont_mul", "xyzz_double", "bucket_reduce", "accum", "suffix_segmented",
                "xyzz_add/commit", "mont_mul/spmv"}
@@ -196,12 +227,20 @@ class PhaseError(RuntimeError):
 
 
 _T0 = time.perf_counter()
+_MARKS = []  # (phase, seconds since the start) at each phase header
 
 
 def log(msg: str) -> None:
-    if msg.startswith("== phase"):
-        msg = f"{msg}  [{time.perf_counter() - _T0:.1f} s since start]"
+    if msg.startswith("== phase") or msg.startswith("== done"):
+        now = time.perf_counter() - _T0
+        _MARKS.append((msg[3:].split(":")[0], now))
+        msg = f"{msg}  [{now:.1f} s since start]"
     print(msg, flush=True)
+
+
+def phase_walls() -> dict:
+    """Each phase's wall seconds, from its header to the next header."""
+    return {a[0]: round(b[1] - a[1], 1) for a, b in zip(_MARKS, _MARKS[1:])}
 
 
 def smi_line() -> str:
@@ -528,30 +567,11 @@ def sync(torch) -> None:
         torch.cuda.synchronize()
 
 
-def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool) -> dict:
-    """The checks of a fold step's kernels on its own inputs (phases 6 and
-    9), on the primary's curve: one fresh primary witness committed by
-    msm_device2, msm_device3 and the host Pippenger (equal); B6 against its
-    plain version on the stage inputs of that commit, in every mode that
-    stage runs (timed when `timed`); K1, K3 and K5 in msm_device2 on a
-    fresh copy of the witness key (the window precompute rebuilt); K4, K2s
-    and K2 in a commit of the running witness; the device cross-term
-    commit_T_device (plain and relaxed) on the padded primary against T
-    formed on the host, with K1 in its SpMV; every kernel bitwise."""
-    from nova_tpu_torch import _build
-    from nova_tpu_torch.fields import kernels as fk
-    from nova_tpu_torch.fields.tfield import TField
-    from nova_tpu_torch.ops import fold as fold_ops
-    from nova_tpu_torch.ops import msm2, msm3, spmv
-    from nova_tpu_torch.ops.fvec import FVec, as_list
-    from nova_tpu_torch.provider.pedersen import CommitmentEngine
+def recorded_stages(fn):
+    """fn() with the arguments of every B6 call recorded: (result, [(args,
+    kwargs), ...])."""
+    from nova_tpu_torch.ops import msm2
 
-    curve = pp.ck_primary.curve
-    witness = list(rs._wgen_primary.cs.aux_assignment)
-    if args.rehearse:
-        witness = witness[:512]
-    n = len(witness)
-    db = pp.ck_primary.device_bases2(n)
     captured = []
     real_stage = msm2.stage
 
@@ -561,17 +581,19 @@ def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool)
 
     msm2.stage = recording_stage
     try:
-        got2 = msm2.msm_device2(witness, device_bases=db, reuse=True)
+        return fn(), captured
     finally:
         msm2.stage = real_stage
-    got3 = msm3.msm_device3(witness, device_bases=db)
-    host = host_msm_parallel(curve, witness, pp.ck_primary.ck[:n], workers)
-    if not got2 == got3 == host:
-        raise PhaseError(f"fresh witness: msm_device2 {got2}, msm_device3 {got3}, host {host}")
-    log(f"fresh {curve.name} witness ({n} scalars): msm_device2 == msm_device3 == host msm")
 
-    # B6 against its plain version on the real first stage (affine input)
-    # and the second (XYZZ input) of that commit
+
+def stage_modes(torch, captured, reps: int, timed: bool):
+    """B6 against its plain version on the first stage (affine input) and
+    the second (XYZZ input) recorded from one msm_device2, in every mode
+    each runs (fast0 and complete; fast and complete), bitwise with equal
+    flags; timed beside its bound when `timed`. Returns (rows by stage and
+    mode, the largest difference, the first stage's fast0 arguments)."""
+    from nova_tpu_torch.ops import msm2
+
     (tf, rounds, masks, pts, _), k0 = captured[0][0], captured[0][1]
     first = (tf, rounds, masks, pts, k0.get("live"))
     (tf, rounds, masks, pts, _), _k = captured[1][0], captured[1][1]
@@ -601,6 +623,68 @@ def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool)
     log("B6: " + json.dumps(stage_rows))
     if err:
         raise PhaseError(f"B6 disagrees with its plain version: max |err| {err}")
+    return stage_rows, err, first[:4] + ("fast0", first[4])
+
+
+def precompute_kernels(scalars, db, want):
+    """msm_device2 of `scalars` on a fresh copy of the bases `db`, so the
+    window precompute is rebuilt, with the largest calls of K1, K2, K3 and
+    K5 recorded; the result must equal `want`. Returns (the recorded
+    calls, the fresh bases, the launches of an msm_device2 without the
+    precompute, the precompute's own launches)."""
+    from nova_tpu_torch import _build
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.ops import msm2
+
+    fresh = msm2.DeviceBases2.from_tensors(db.curve, db.x, db.y, db.inf)
+    before = dict(_build.LAUNCHES)
+    with largest_calls({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
+                        "xyzz_double": (fk, "xyzz_double"),
+                        "bucket_reduce": (msm2, "_bucket_reduce")}) as seen:
+        again = msm2.msm_device2(scalars, device_bases=fresh, reuse=True)
+    if again != want:
+        raise PhaseError(f"msm_device2 with the precompute rebuilt: {again} != {want}")
+    cold = launch_delta(_build, before)
+    before = dict(_build.LAUNCHES)
+    msm2.msm_device2(scalars, device_bases=fresh, reuse=True)
+    warm = launch_delta(_build, before)
+    precompute = {k: cold[k] - warm[k] for k in cold}
+    log(f"msm_device2 launches: with the window precompute {cold}, without {warm}; "
+        f"the precompute alone {precompute}")
+    return seen, fresh, warm, precompute
+
+
+def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool) -> dict:
+    """The checks of a fold step's kernels on its own inputs (phases 6 and
+    9), on the primary's curve: one fresh primary witness committed by
+    msm_device2, msm_device3 and the host Pippenger (equal); B6 against its
+    plain version on the stage inputs of that commit, in every mode that
+    stage runs (timed when `timed`); K1, K3 and K5 in msm_device2 on a
+    fresh copy of the witness key (the window precompute rebuilt); K4, K2s
+    and K2 in a commit of the running witness; the device cross-term
+    commit_T_device (plain and relaxed) on the padded primary against T
+    formed on the host, with K1 in its SpMV; every kernel bitwise."""
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.fields.tfield import TField
+    from nova_tpu_torch.ops import fold as fold_ops
+    from nova_tpu_torch.ops import msm2, msm3, spmv
+    from nova_tpu_torch.ops.fvec import FVec, as_list
+    from nova_tpu_torch.provider.pedersen import CommitmentEngine
+
+    curve = pp.ck_primary.curve
+    witness = list(rs._wgen_primary.cs.aux_assignment)
+    if args.rehearse:
+        witness = witness[:512]
+    n = len(witness)
+    db = pp.ck_primary.device_bases2(n)
+    got2, captured = recorded_stages(lambda: msm2.msm_device2(witness, device_bases=db,
+                                                              reuse=True))
+    got3 = msm3.msm_device3(witness, device_bases=db)
+    host = host_msm_parallel(curve, witness, pp.ck_primary.ck[:n], workers)
+    if not got2 == got3 == host:
+        raise PhaseError(f"fresh witness: msm_device2 {got2}, msm_device3 {got3}, host {host}")
+    log(f"fresh {curve.name} witness ({n} scalars): msm_device2 == msm_device3 == host msm")
+    stage_rows, err, first = stage_modes(torch, captured, reps, timed)
 
     # K1, K3-K5 and K2s against their plain versions on the inputs the fold
     # step gives them: an msm_device2 on a fresh copy of the witness key
@@ -608,21 +692,7 @@ def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool)
     # inversion) and reduces its buckets (K5); a commit of the running
     # witness (verify's route) runs K4, K2s and K2; the cross-term's SpMV
     # runs K1
-    fresh = msm2.DeviceBases2.from_tensors(curve, db.x, db.y, db.inf)
-    before = dict(_build.LAUNCHES)
-    with largest_calls({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
-                        "xyzz_double": (fk, "xyzz_double"),
-                        "bucket_reduce": (msm2, "_bucket_reduce")}) as seen:
-        again = msm2.msm_device2(witness, device_bases=fresh, reuse=True)
-    if again != got2:
-        raise PhaseError(f"msm_device2 with the precompute rebuilt: {again} != {got2}")
-    cold = launch_delta(_build, before)
-    before = dict(_build.LAUNCHES)
-    msm2.msm_device2(witness, device_bases=fresh, reuse=True)
-    warm = launch_delta(_build, before)
-    precompute = {k: cold[k] - warm[k] for k in cold}
-    log(f"msm_device2 launches: with the window precompute {cold}, without {warm}; "
-        f"the precompute alone {precompute}")
+    seen, fresh, warm, precompute = precompute_kernels(witness, db, got2)
     sf = TField(curve.scalar)
     with largest_calls({"accum": (msm3, "accum"),
                         "suffix_segmented": (msm3, "suffix_to_buckets"),
@@ -673,7 +743,7 @@ def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool)
     if bad:
         raise PhaseError(f"fold-step kernels disagree with their plain versions: {bad}")
     return {"witness": witness, "db": db, "got2": got2, "fresh": fresh, "stage_rows": stage_rows,
-            "stage_err": err, "stage_first": first[:4] + ("fast0", first[4]),
+            "stage_err": err, "stage_first": first,
             "seen": seen, "kernel_errs": kernel_errs, "warm": warm,
             "precompute": precompute, "commit_T_ms": t_ms}
 
@@ -863,40 +933,37 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     }
 
 
-def compress(args, torch, dev, pp, rs) -> dict:
-    """Phase 7: CompressedSNARK setup -> prove -> verify on the fold step's
-    RecursiveSNARK (counts reset just before setup, read just after
-    verify), then its checks: a tampered proof fails, the outer sumcheck
-    again on the same tables through the other route (the host native loop
-    on the card), K1 in the device outer sumcheck's first round against its
-    plain version, and the randomizer's W commit against the native host
-    MSM."""
+def tampered_fail(verify, changes) -> None:
+    """Each change (what, apply, undo) applied alone must make verify()
+    raise NovaError; every change is undone after its try."""
+    from nova_tpu_torch.errors import NovaError
+
+    for what, apply, undo in changes:
+        apply()
+        try:
+            verify()
+        except NovaError:
+            pass
+        else:
+            raise PhaseError(f"a proof with {what} changed verified")
+        finally:
+            undo()
+    log(f"tampered proofs ({', '.join(c[0] for c in changes)}) fail to verify")
+
+
+@contextlib.contextmanager
+def outer_sumchecks(torch):
+    """While installed, record the largest outer sumcheck (by rounds; the
+    latest among equals), whichever route proves it: its route, inputs, a
+    copy of its transcript, its result and its wall ms. Yields the record."""
     import copy
 
-    from nova_tpu_torch import _build, native, profiling
-    from nova_tpu_torch.errors import NovaError
-    from nova_tpu_torch.fields import kernels as fk
-    from nova_tpu_torch.nova.compressed import CompressedSNARK
-    from nova_tpu_torch.ops import msm2
     from nova_tpu_torch.ops import sumcheck as dsc
-    from nova_tpu_torch.spartan.polys import MultilinearPolynomial as ML
     from nova_tpu_torch.spartan.sumcheck import SumcheckProof
 
-    S = pp.r1cs_shape_primary
-    log(f"== phase 7: compression (CompressedSNARK on the {S.num_cons}-constraint "
-        f"primary after {rs.i} steps)")
-    if not native.available():
-        raise PhaseError("the native host binding did not build (native/nova_native.cpp)")
-
-    # recorded while installed: the largest outer sumcheck (the primary's),
-    # whichever route proves it, with a copy of its transcript and its
-    # result; K1's arguments in the first device round; the primary's
-    # random pair
-    outer, k1, pair = {}, {}, {}
+    outer = {}
     real_dev = dsc.prove_cubic_with_three_inputs_device
     real_host = SumcheckProof.prove_cubic_with_three_inputs
-    real_round = dsc.DeviceSumcheck.cubic_eq_round
-    real_sample = S.sample_random_instance_witness
 
     def keep(route, field, claim, taus, tables, transcript, run):
         tcopy = copy.deepcopy(transcript, {id(transcript.scalar_field): transcript.scalar_field})
@@ -919,6 +986,74 @@ def compress(args, torch, dev, pp, rs) -> dict:
         return keep("host", field, claim, taus, tables, transcript,
                     lambda: real_host(field, claim, taus, A, B, C, transcript))
 
+    dsc.prove_cubic_with_three_inputs_device = on_device
+    SumcheckProof.prove_cubic_with_three_inputs = staticmethod(on_host)
+    try:
+        yield outer
+    finally:
+        dsc.prove_cubic_with_three_inputs_device = real_dev
+        SumcheckProof.prove_cubic_with_three_inputs = staticmethod(real_host)
+
+
+def other_route(torch, dev, o: dict) -> float:
+    """The outer sumcheck recorded by outer_sumchecks again, on the same
+    tables and a copy of its transcript, through the other route (on the
+    card: the host native loop; in a rehearsal, which proves on the host,
+    the device route); fails unless both give the same proof byte for byte.
+    Returns the other route's wall ms."""
+    from nova_tpu_torch.ops import sumcheck as dsc
+    from nova_tpu_torch.spartan.polys import MultilinearPolynomial as ML
+    from nova_tpu_torch.spartan.sumcheck import SumcheckProof
+
+    field, tables = o["field"], o["tables"]
+    t0 = time.perf_counter()
+    if o["route"] == "device":
+        other = SumcheckProof.prove_cubic_with_three_inputs(
+            field, o["claim"], o["taus"], *(ML(field, t) for t in tables), o["transcript"])
+    else:
+        other = dsc.prove_cubic_with_three_inputs_device(
+            field, o["claim"], o["taus"], *tables, o["transcript"], device=dev)
+    sync(torch)
+    other_ms = (time.perf_counter() - t0) * 1e3
+
+    def proof(res):
+        return [cp.coeffs_except_linear_term for cp in res[0].compressed_polys], res[1], res[2]
+
+    if proof(o["result"]) != proof(other):
+        raise PhaseError(f"outer sumcheck: the {o['route']} proof differs from the other route's")
+    log(f"outer sumcheck ({o['rounds']} rounds): {o['route']} on the main path "
+        f"{o['ms']:.1f} ms; the other route gives the same proof byte for byte "
+        f"({other_ms:.1f} ms)")
+    return other_ms
+
+
+def compress(args, torch, dev, pp, rs) -> dict:
+    """Phase 7: CompressedSNARK setup -> prove -> verify on the fold step's
+    RecursiveSNARK (counts reset just before setup, read just after
+    verify), then its checks: a tampered proof fails, the outer sumcheck
+    again on the same tables through the other route (the host native loop
+    on the card), K1 in the device outer sumcheck's first round against its
+    plain version, and the randomizer's W commit against the native host
+    MSM."""
+    from nova_tpu_torch import _build, native, profiling
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.ops import msm2
+    from nova_tpu_torch.ops import sumcheck as dsc
+
+    S = pp.r1cs_shape_primary
+    log(f"== phase 7: compression (CompressedSNARK on the {S.num_cons}-constraint "
+        f"primary after {rs.i} steps)")
+    if not native.available():
+        raise PhaseError("the native host binding did not build (native/nova_native.cpp)")
+
+    # recorded while installed: the largest outer sumcheck (the primary's),
+    # whichever route proves it (outer_sumchecks); K1's arguments in the
+    # first device round; the primary's random pair
+    k1, pair = {}, {}
+    real_round = dsc.DeviceSumcheck.cubic_eq_round
+    real_sample = S.sample_random_instance_witness
+
     def first_round(self, *polys):
         if k1:
             return real_round(self, *polys)
@@ -933,86 +1068,59 @@ def compress(args, torch, dev, pp, rs) -> dict:
 
     z0 = [2]
     os.environ["NOVA_PROFILE"] = "1"
-    dsc.prove_cubic_with_three_inputs_device = on_device
-    SumcheckProof.prove_cubic_with_three_inputs = staticmethod(on_host)
     dsc.DeviceSumcheck.cubic_eq_round = first_round
     S.sample_random_instance_witness = sample
     try:
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        pk, vk = CompressedSNARK.setup(pp)
-        setup_s = time.perf_counter() - t0
-        profiling.global_reset()
-        t0 = time.perf_counter()
-        with largest_calls({"bucket_reduce": (msm2, "_bucket_reduce")}) as seen_k5:
-            snark = CompressedSNARK.prove(pp, pk, rs)
-        sync(torch)
-        prove_s = time.perf_counter() - t0
-        phases = {k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()}
-        t0 = time.perf_counter()
-        out = snark.verify(vk, rs.i, z0)
-        sync(torch)
-        verify_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        del os.environ["NOVA_PROFILE"]
-        log(f"setup {setup_s:.2f} s; prove {prove_s:.2f} s; verify {verify_s:.2f} s; "
-            f"launches {launches}")
-        log("prove phases (ms, both curves): " + json.dumps(phases))
-        if out != list(rs.zi):
-            raise PhaseError(f"verify returned {out}, expected {rs.zi}")
-        if not args.rehearse:
-            missing = [k for k in COMPRESS_KERNELS if launches[k] == 0]
-            if missing:
-                raise PhaseError(f"kernels not launched on compression: {missing}")
-            if outer["route"] != "device":
-                raise PhaseError("the primary's outer sumcheck did not take the device route")
+        with outer_sumchecks(torch) as outer:
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            pk, vk = CompressedSNARK.setup(pp)
+            setup_s = time.perf_counter() - t0
+            profiling.global_reset()
+            t0 = time.perf_counter()
+            with largest_calls({"bucket_reduce": (msm2, "_bucket_reduce")}) as seen_k5:
+                snark = CompressedSNARK.prove(pp, pk, rs)
+            sync(torch)
+            prove_s = time.perf_counter() - t0
+            phases = {k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()}
+            t0 = time.perf_counter()
+            out = snark.verify(vk, rs.i, z0)
+            sync(torch)
+            verify_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            del os.environ["NOVA_PROFILE"]
+            log(f"setup {setup_s:.2f} s; prove {prove_s:.2f} s; verify {verify_s:.2f} s; "
+                f"launches {launches}")
+            log("prove phases (ms, both curves): " + json.dumps(phases))
+            if out != list(rs.zi):
+                raise PhaseError(f"verify returned {out}, expected {rs.zi}")
+            if not args.rehearse:
+                missing = [k for k in COMPRESS_KERNELS if launches[k] == 0]
+                if missing:
+                    raise PhaseError(f"kernels not launched on compression: {missing}")
+                if outer["route"] != "device":
+                    raise PhaseError("the primary's outer sumcheck did not take the device route")
 
-        # a tampered proof fails
-        p = S.field.p
-        zn, ew = list(snark.zn), snark.snark_primary.eval_W
-        for what in ("zn", "eval_W"):
-            if what == "zn":
-                snark.zn = [(z + 1) % p for z in zn]
-            else:
-                snark.snark_primary.eval_W = (ew + 1) % p
-            try:
-                snark.verify(vk, rs.i, z0)
-            except NovaError:
-                pass
-            else:
-                raise PhaseError(f"a proof with {what} changed verified")
-            finally:
-                snark.zn, snark.snark_primary.eval_W = zn, ew
-        log("tampered proofs (zn, the primary's eval_W) fail to verify")
-
+            # a tampered proof fails
+            p = S.field.p
+            zn, sp = list(snark.zn), snark.snark_primary
+            ew = sp.eval_W
+            tampered_fail(lambda: snark.verify(vk, rs.i, z0), [
+                ("zn", lambda: setattr(snark, "zn", [(z + 1) % p for z in zn]),
+                 lambda: setattr(snark, "zn", zn)),
+                ("the primary's eval_W", lambda: setattr(sp, "eval_W", (ew + 1) % p),
+                 lambda: setattr(sp, "eval_W", ew)),
+            ])
         # the outer sumcheck again on the same tables through the other
-        # route (on the card: the host native loop; in a rehearsal, which
-        # proves on the host, the device route)
+        # route (in a rehearsal the device route, whose first round K1 is
+        # recorded here)
         o = outer
-        field, tables = o["field"], o["tables"]
-        t0 = time.perf_counter()
-        if o["route"] == "device":
-            other = real_host(field, o["claim"], o["taus"], *(ML(field, t) for t in tables),
-                              o["transcript"])
-        else:
-            other = real_dev(field, o["claim"], o["taus"], *tables, o["transcript"], device=dev)
-        sync(torch)
-        other_ms = (time.perf_counter() - t0) * 1e3
+        other_ms = other_route(torch, dev, o)
     finally:
-        dsc.prove_cubic_with_three_inputs_device = real_dev
-        SumcheckProof.prove_cubic_with_three_inputs = staticmethod(real_host)
         dsc.DeviceSumcheck.cubic_eq_round = real_round
         del S.sample_random_instance_witness
         os.environ.pop("NOVA_PROFILE", None)
 
-    def proof(res):
-        return [cp.coeffs_except_linear_term for cp in res[0].compressed_polys], res[1], res[2]
-
-    if proof(o["result"]) != proof(other):
-        raise PhaseError(f"outer sumcheck: the {o['route']} proof differs from the other route's")
-    log(f"outer sumcheck ({o['rounds']} rounds): {o['route']} on the main path "
-        f"{o['ms']:.1f} ms; the other route gives the same proof byte for byte "
-        f"({other_ms:.1f} ms)")
     k1_err = kernel_vs_plain(torch, "mont_mul", k1["mont_mul"])
     k1_rows = list(first_input(k1["mont_mul"]).shape)
     log(f"K1 in the first device round ({k1_rows}): max |kernel - plain| {k1_err}")
@@ -1057,6 +1165,108 @@ def kernel_call(name: str, args):
     return lambda: fn(*args)
 
 
+def shape_times(torch, calls, reps: int) -> dict:
+    """Each kernel's time on recorded calls [(label, args), ...], the first
+    call of each kernel: device ms under the profiler, else CUDA events."""
+    shapes = {}
+    for label, a in calls:
+        name = label.split("/")[0]
+        if name in shapes:
+            continue
+        fn = kernel_call(name, a)
+        t = device_ms(torch, fn, reps)
+        timer = "profiler" if torch.cuda.is_available() else "host clock"
+        if t is None:
+            t, timer = cuda_ms(torch, fn, reps), "events"
+        shapes[name] = {"rows": list(first_input(a).shape), "ms": t, "timer": timer}
+    return shapes
+
+
+def mercury_compression(args, torch, pp, rs, z0) -> dict:
+    """Phase 9's Mercury step: CompressedSNARK with Mercury on the BN254
+    primary and IPA on the secondary (setup, prove by phase, verify) on
+    phase 9's RecursiveSNARK, its launches, proofs with zn or one Mercury
+    argument field changed failing, and the largest msm_device2 commit made
+    inside Mercury's prover against the native host MSM."""
+    from nova_tpu_torch import _build, constants, native, profiling
+    from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.ops import msm2
+    from nova_tpu_torch.provider.mercury import EvaluationEngine as Mercury
+
+    log("phase 9: Mercury compression (Mercury on the BN254 primary, IPA on the secondary)")
+    largest, inside = {}, []
+    real_msm, real_prove = msm2.msm_device2, Mercury.prove
+
+    def recording_msm(scalars, *a, **k):
+        out = real_msm(scalars, *a, **k)
+        if inside and len(scalars) >= largest.get("n", -1):
+            largest.update(n=len(scalars), scalars=list(scalars), out=out)
+        return out
+
+    def recording_prove(*a, **k):
+        inside.append(1)
+        try:
+            return real_prove(*a, **k)
+        finally:
+            inside.pop()
+
+    os.environ["NOVA_PROFILE"] = "1"
+    msm2.msm_device2 = recording_msm
+    Mercury.prove = staticmethod(recording_prove)
+    _build.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        pk, vk = CompressedSNARK.setup(pp, ee1=Mercury)
+        setup_s = time.perf_counter() - t0
+        profiling.global_reset()
+        t0 = time.perf_counter()
+        snark = CompressedSNARK.prove(pp, pk, rs)
+        sync(torch)
+        prove_s = time.perf_counter() - t0
+        phases = {k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()}
+        t0 = time.perf_counter()
+        out = snark.verify(vk, rs.i, z0)
+        sync(torch)
+        verify_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        msm2.msm_device2, Mercury.prove = real_msm, staticmethod(real_prove)
+        os.environ.pop("NOVA_PROFILE", None)
+    if out != list(rs.zi):
+        raise PhaseError(f"Mercury compressed verify returned {out}, expected {rs.zi}")
+    log(f"Mercury compression: setup {setup_s:.2f} s, prove {prove_s:.2f} s, verify "
+        f"{verify_s:.2f} s; phases (ms) {json.dumps(phases)}; launches {launches}")
+    missing = [k for k in COMPRESS_KERNELS if launches[k] == 0]
+    if missing and not args.rehearse:
+        raise PhaseError(f"kernels not launched on the Mercury compression: {missing}")
+
+    r = pp.engine1.scalar.p
+    zn, arg = list(snark.zn), snark.snark_primary.eval_arg
+    g = arg.g_zeta
+    tampered_fail(lambda: snark.verify(vk, rs.i, z0), [
+        ("zn", lambda: setattr(snark, "zn", [(z + 1) % r for z in zn]),
+         lambda: setattr(snark, "zn", zn)),
+        ("Mercury's g_zeta", lambda: setattr(arg, "g_zeta", (g + 1) % r),
+         lambda: setattr(arg, "g_zeta", g)),
+    ])
+
+    host_ms = None
+    if largest:
+        ck, n = pp.ck_primary, largest["n"]
+        t0 = time.perf_counter()
+        host = native.msm_cached(ck.curve, ck.host_arrays(n), largest["scalars"])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if host != largest["out"]:
+            raise PhaseError(f"Mercury's {n}-scalar msm_device2 commit != the native host MSM")
+        log(f"Mercury's largest msm_device2 commit ({n} scalars) == the native host MSM")
+    elif not args.rehearse:
+        raise PhaseError("Mercury's prover made no msm_device2 commit "
+                         f"(none of >= {constants.DEVICE_THRESHOLD} scalars)")
+    return {"setup_s": setup_s, "prove_ms": prove_s * 1e3, "phase_ms": phases,
+            "verify_ms": verify_s * 1e3, "launches": launches,
+            "largest_msm_device2": largest.get("n"), "host_msm_ms": host_ms}
+
+
 def kzg_path(args, torch, dev, workers: int) -> dict:
     """Phase 9: BN254/Grumpkin with HyperKZG. A test ptau file (written from
     a tau drawn from SEED, or reused), PublicParams.setup_with_ptau_dir on
@@ -1071,7 +1281,6 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
 
     from nova_tpu_torch import _build, native, profiling
     from nova_tpu_torch.curves.spec import bn254
-    from nova_tpu_torch.errors import NovaError
     from nova_tpu_torch.frontend.constraint_system import ShapeCS
     from nova_tpu_torch.nova.circuit import NovaAugmentedCircuit, TrivialCircuit
     from nova_tpu_torch.nova.compressed import CompressedSNARK
@@ -1090,7 +1299,9 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
     if not native.available():
         raise PhaseError("the native host binding did not build (native/nova_native.cpp)")
 
-    # the ptau file: written once under the git-ignored build directory
+    # the ptau file: written once under the git-ignored build directory, at
+    # the power of phase 10's spark key; this phase reads its 2^log_cons
+    # points from it (find_ptau_file takes the smallest file that fits)
     d = os.path.join(native.BUILD_ROOT, "ptau")
     path = os.path.join(d, f"ppot_pruned_{power:02d}.ptau")
     t0 = time.perf_counter()
@@ -1157,21 +1368,13 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
 
     # a proof with zn, or with one HyperKZG witness, changed fails
     zn, w = list(snark.zn), snark.snark_primary.eval_arg.w
-    for what in ("zn", "w[1]"):
-        w1 = w[1]
-        if what == "zn":
-            snark.zn = [(z + 1) % r for z in zn]
-        else:
-            w[1] = w1 + w[0]
-        try:
-            snark.verify(vk, rs.i, z0)
-        except NovaError:
-            pass
-        else:
-            raise PhaseError(f"a HyperKZG proof with {what} changed verified")
-        finally:
-            snark.zn, w[1] = zn, w1
-    log("tampered proofs (zn, a HyperKZG witness) fail to verify")
+    w1 = w[1]
+    tampered_fail(lambda: snark.verify(vk, rs.i, z0), [
+        ("zn", lambda: setattr(snark, "zn", [(z + 1) % r for z in zn]),
+         lambda: setattr(snark, "zn", zn)),
+        ("a HyperKZG witness", lambda: w.__setitem__(1, w1 + w[0]),
+         lambda: w.__setitem__(1, w1)),
+    ])
 
     # the path launched every kernel, and K3 once a window in the KZG key's
     # window precomputes (one per window size and padded length it met)
@@ -1188,20 +1391,11 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
     log(f"K3: {launches['xyzz_double']} launches, one a window of the KZG key's "
         f"precomputes (window, lanes) {fixed}")
 
+    merc = mercury_compression(args, torch, pp, rs, z0)
+
     chk = path_kernels(args, torch, dev, pp, rs, workers, reps, timed=False)
-    # each kernel's time at this path's shapes (device ms under the profiler,
-    # else CUDA events)
-    shapes = {}
-    for label, a in list(chk["seen"].items()) + [("stage", chk["stage_first"])]:
-        name = label.split("/")[0]
-        if name in shapes:
-            continue
-        fn = kernel_call(name, a)
-        t = device_ms(torch, fn, reps)
-        timer = "profiler" if torch.cuda.is_available() else "host clock"
-        if t is None:
-            t, timer = cuda_ms(torch, fn, reps), "events"
-        shapes[name] = {"rows": list(first_input(a).shape), "ms": t, "timer": timer}
+    shapes = shape_times(torch, list(chk["seen"].items()) + [("stage", chk["stage_first"])],
+                         reps)
     log("kernels at the KZG path's shapes: " + json.dumps(shapes))
 
     replay = step_phases[2:]
@@ -1214,8 +1408,279 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
         "compress_phase_ms": cphases, "compress_verify_ms": cverify_s * 1e3,
         "launches": launches, "launches_per_replayed_step": step_launches[2:],
         "compress_launches": compress_launches, "k3_precomputes": fixed,
-        "kernel_errs": chk["kernel_errs"], "shape_ms": shapes,
+        "kernel_errs": chk["kernel_errs"], "shape_ms": shapes, "mercury": merc,
+        "pp": pp, "ptau_dir": d,
     }
+
+
+def ppsnark_path(args, torch, dev, workers: int, kzg: dict) -> dict:
+    """Phase 10: ppsnark (Spark) on BN254/Grumpkin at phase 9's primary.
+    PublicParams.setup_with_ptau_dir with ck_hint1/ck_hint2 = ppsnark's
+    ck_floor of phase 9's ShapeCS shapes (the 2^19 KZG key from phase 9's
+    ptau file, a 2^17 + 1 Grumpkin key), RecursiveSNARK.new, KZG_STEPS
+    prove_steps and verify, then CompressedSNARK with ppsnark on both
+    curves (HyperKZG on the primary, IPA on the secondary; prove by phase)
+    and verify, the counts reset just before new and read just after
+    compression's verify: every kernel of the path must launch, K3 once a
+    window of each window precompute (the 2^19 key's among them), and the
+    primary's outer sumcheck on the device; proofs with zn, eval_L_row or
+    a spark commitment of the vk changed fail; the outer sumcheck again
+    through the host prover gives the same proof; the spark row commit at
+    N against the native host MSM, with B6 (all three modes), K1, K3 and K5
+    against their plain versions on its inputs; msm_device2 and the window
+    precompute timed at N, and the native MSM that commits the HVec
+    oracles."""
+    import numpy as np
+
+    from nova_tpu_torch import _build, constants, native, profiling
+    from nova_tpu_torch.curves.spec import bn254
+    from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.nova.ivc import PublicParams
+    from nova_tpu_torch.ops import msm2
+    from nova_tpu_torch.ops.fvec import HVec
+    from nova_tpu_torch.provider.engines import Bn256EngineIPA, GrumpkinEngine
+    from nova_tpu_torch.provider.hyperkzg import EvaluationEngine as KZG
+    from nova_tpu_torch.provider.pedersen import CommitmentEngine
+    from nova_tpu_torch.spartan.ppsnark import RelaxedR1CSSNARK as PP
+
+    reps = 1 if args.rehearse else 5
+    S1, S2 = kzg["pp"].r1cs_shape_primary, kzg["pp"].r1cs_shape_secondary
+    hint1, hint2 = PP.ck_floor(S1), PP.ck_floor(S2)
+    log(f"== phase 10: ppsnark on BN254/Grumpkin (primary {S1.num_cons} constraints, "
+        f"ck_floor {hint1} / {hint2}, {KZG_STEPS} prove_steps)")
+    saved_threshold = constants.DEVICE_THRESHOLD
+    if args.rehearse:
+        # the augmented circuits' spark vectors are 2^17-2^18 long, too long
+        # for the plain msm_device2 on the CPU: a rehearsal commits them on
+        # the native host MSM
+        constants.DEVICE_THRESHOLD = 1 << 30
+        log("rehearsal: DEVICE_THRESHOLD raised, the spark commits take the native host MSM")
+    squares = kzg["squares"]
+    circuit = square_chain(squares)
+    t0 = time.perf_counter()
+    pp = PublicParams.setup_with_ptau_dir(Bn256EngineIPA, GrumpkinEngine, circuit,
+                                          kzg["ptau_dir"], ck_hint1=hint1, ck_hint2=hint2,
+                                          device=dev)
+    setup_s = time.perf_counter() - t0
+    log(f"setup_with_ptau_dir: keys {len(pp.ck_primary)}/{len(pp.ck_secondary)} on "
+        f"{pp.ck_primary.device}, {setup_s:.1f} s")
+
+    precomputes = []  # (window, rows, windows) of each window precompute
+    real_pre = msm2._precompute_shifted
+
+    def recording_pre(tf, c, W, bx, *a):
+        precomputes.append((c, int(bx.shape[0]), W))
+        return real_pre(tf, c, W, bx, *a)
+
+    os.environ["NOVA_PROFILE"] = "1"
+    msm2._precompute_shifted = recording_pre
+    try:
+        with outer_sumchecks(torch) as outer:
+            run = drive_steps(torch, pp, circuit, KZG_STEPS, squares, bn254.scalar.p)
+            rs, z0 = run["rs"], run["z0"]
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            pk, vk = CompressedSNARK.setup(pp, S1=PP, S2=PP, ee1=KZG)
+            sync(torch)
+            csetup_s = time.perf_counter() - t0
+            profiling.global_reset()
+            t0 = time.perf_counter()
+            snark = CompressedSNARK.prove(pp, pk, rs)
+            sync(torch)
+            prove_s = time.perf_counter() - t0
+            cphases = {k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()}
+            t0 = time.perf_counter()
+            cout = snark.verify(vk, rs.i, z0)
+            sync(torch)
+            cverify_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            compress_launches = launch_delta(_build, before)
+    finally:
+        msm2._precompute_shifted = real_pre
+        os.environ.pop("NOVA_PROFILE", None)
+        constants.DEVICE_THRESHOLD = saved_threshold
+    if cout != list(rs.zi):
+        raise PhaseError(f"ppsnark compressed verify returned {cout}, expected {rs.zi}")
+    N1, N2 = pk.pk_primary.S_repr.N, pk.pk_secondary.S_repr.N
+    log(f"ppsnark compression (N = {N1} / {N2}): setup {csetup_s:.2f} s, prove "
+        f"{prove_s:.2f} s, verify {cverify_s:.2f} s; phases (ms) {json.dumps(cphases)}")
+    log(f"path launches (new to compression's verify) {launches}; window precomputes "
+        f"(window, rows, windows) {precomputes}")
+    k3_want = sum(W - 1 for _, _, W in precomputes)
+    if not args.rehearse:
+        missing = [k for k in KZG_KERNELS if launches[k] == 0]
+        if missing:
+            raise PhaseError(f"kernels not launched on the ppsnark path: {missing}")
+        if launches["xyzz_double"] != k3_want or not any(n == N1 for _, n, _ in precomputes):
+            raise PhaseError(f"K3 launched {launches['xyzz_double']} times, expected once a "
+                             f"window of the precomputes {precomputes} ({k3_want}), among "
+                             f"them the {N1}-row key's")
+        if outer["route"] != "device":
+            raise PhaseError("the primary's outer sumcheck did not take the device route")
+
+    r = bn254.scalar.p
+    zn, sp, sc = list(snark.zn), snark.snark_primary, vk.vk_primary.S_comm
+    lrow, crow = sp.eval_L_row, sc.comm_row
+    tampered_fail(lambda: snark.verify(vk, rs.i, z0), [
+        ("zn", lambda: setattr(snark, "zn", [(z + 1) % r for z in zn]),
+         lambda: setattr(snark, "zn", zn)),
+        ("eval_L_row", lambda: setattr(sp, "eval_L_row", (lrow + 1) % r),
+         lambda: setattr(sp, "eval_L_row", lrow)),
+        ("the vk's spark row commitment", lambda: setattr(sc, "comm_row", sc.comm_col),
+         lambda: setattr(sc, "comm_row", crow)),
+    ])
+    other_ms = other_route(torch, dev, outer)
+
+    # the spark row commit at N on the card against the native host MSM,
+    # and B6, K1, K3 and K5 against their plain versions on its inputs (a
+    # rehearsal, whose plain msm_device2 at N would take hours, skips this)
+    kernel_errs, checked, stage_rows, shapes, timing = {}, {}, {}, {}, {}
+    row_ms = host_ms = None
+    modes = []
+    if not args.rehearse:
+        ck = pp.ck_primary
+        row = list(pk.pk_primary.S_repr.row)
+        db = ck.device_bases2(N1)
+        t0 = time.perf_counter()
+        got2, captured = recorded_stages(lambda: msm2.msm_device2(row, device_bases=db,
+                                                                  reuse=True))
+        row_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host = native.msm_cached(ck.curve, ck.host_arrays(N1), row)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if not got2 == host == pk.pk_primary.S_comm.comm_row.point:
+            raise PhaseError(f"spark row commit: msm_device2 {got2}, native {host}, "
+                             f"vk {pk.pk_primary.S_comm.comm_row.point}")
+        modes = sorted({a[4] for a, _ in captured})
+        log(f"spark row commit ({N1} scalars, max {max(row).bit_length()} bits): msm_device2 "
+            f"{row_ms:.1f} ms == native host MSM {host_ms:.1f} ms == the vk's; B6 modes {modes}"
+            f"{' (the complete rerun was taken)' if 'complete' in modes else ''}")
+        stage_rows, kernel_errs["stage"], first = stage_modes(torch, captured, reps, True)
+        seen, fresh, warm, precompute = precompute_kernels(row, db, got2)
+        for label, a in seen.items():
+            e = kernel_vs_plain(torch, label, a)
+            kernel_errs[label] = e
+            checked[label] = {"rows": list(first_input(a).shape), "max_abs_err": e}
+        log(f"spark row commit kernels against their plain versions: {json.dumps(checked)}")
+        bad = {k: e for k, e in kernel_errs.items() if e}
+        if bad:
+            raise PhaseError(f"spark commit kernels disagree with their plain versions: {bad}")
+        shapes = shape_times(torch, list(seen.items()) + [("stage", first)], reps)
+        log("kernels at the spark commit's shapes: " + json.dumps(shapes))
+
+        # msm_device2 at N (the row vector and a full-width one), the N-row
+        # window precompute, and the native host MSM on the full-width
+        # vector as an HVec (the route of L_row, L_col and the four memory
+        # oracles)
+        rng = np.random.default_rng(SEED + 10)
+        raw = rng.bytes(32 * N1)
+        full = [int.from_bytes(raw[32 * i : 32 * i + 32], "little") % r for i in range(N1)]
+        hv = HVec(r, ints=full)
+        hv.limbs64()
+
+        def median_ms(fn, k=3):
+            fn()
+            sync(torch)
+            ts = []
+            for _ in range(k):
+                t0 = time.perf_counter()
+                fn()
+                sync(torch)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ts)
+
+        timing = {
+            "n": N1, "msm_device2_row_ms": median_ms(
+                lambda: msm2.msm_device2(row, device_bases=db, reuse=True)),
+            "msm_device2_full_ms": median_ms(
+                lambda: msm2.msm_device2(full, device_bases=db, reuse=True)),
+            "native_hvec_commit_ms": median_ms(lambda: CommitmentEngine.commit(ck, hv)),
+            "precompute_launches": precompute, "msm_device2_launches": warm,
+        }
+        c = msm2._window_for(N1)
+        bx, by, binf = msm2._sized(fresh, N1)
+        timing["precompute_ms"] = precompute_ms(
+            torch, lambda: msm2._precompute_shifted(fresh.tf, c, msm2._num_windows2(c),
+                                                    bx, by, binf))
+        log("spark-size timings: " + json.dumps(timing))
+
+    replay = run["step_phases"][2:]
+    return {
+        "setup_s": setup_s, "ck_floor": [hint1, hint2], "N": [N1, N2], "new_s": run["new_s"],
+        "prove_step_all_ms": [t * 1e3 for t in run["step_s"]],
+        "phase_ms": {k: statistics.median(ph.get(k, 0.0) for ph in replay) for k in replay[0]},
+        "verify_ms": run["verify_s"] * 1e3, "compress_setup_s": csetup_s,
+        "compress_ms": prove_s * 1e3, "compress_phase_ms": cphases,
+        "compress_verify_ms": cverify_s * 1e3, "launches": launches,
+        "compress_launches": compress_launches, "precomputes": precomputes,
+        "outer_route": outer["route"], "outer_ms": outer["ms"], "other_route_ms": other_ms,
+        "row_commit_ms": row_ms, "row_host_ms": host_ms, "row_modes": modes,
+        "kernel_errs": kernel_errs, "stage_modes": stage_rows, "shape_ms": shapes,
+        "timing": timing,
+    }
+
+
+def direct_path(args, torch, dev) -> dict:
+    """Phase 11: DirectSNARK with ppsnark on Pallas (benches/ppsnark.rs's
+    shape): a squaring chain of DIRECT_SQUARES squares, so that the spark
+    vectors are N = 2^17 long and the key is phase 5's 2^17 + 1 Pallas key;
+    setup (the spark commits must take msm_device2), prove, verify of
+    z = 2 -> 2^(2^squares), and a changed io failing."""
+    from nova_tpu_torch import _build
+    from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.ops import msm2
+    from nova_tpu_torch.provider.engines import PallasEngine
+    from nova_tpu_torch.spartan.direct import DirectSNARK
+    from nova_tpu_torch.spartan.ppsnark import RelaxedR1CSSNARK as PP
+
+    squares = REHEARSE_DIRECT_SQUARES if args.rehearse else DIRECT_SQUARES
+    log(f"== phase 11: DirectSNARK with ppsnark on Pallas ({squares} squares)")
+    circuit = square_chain(squares)
+    calls = []  # the lengths of the msm_device2 calls
+    real = msm2.msm_device2
+
+    def counting(scalars, *a, **k):
+        calls.append(len(scalars))
+        return real(scalars, *a, **k)
+
+    _build.reset_launches()
+    msm2.msm_device2 = counting
+    try:
+        t0 = time.perf_counter()
+        pk, vk = DirectSNARK.setup(PallasEngine, circuit, S_snark=PP, device=dev)
+        sync(torch)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snark = DirectSNARK.prove(PallasEngine, pk, circuit, [2], S_snark=PP)
+        sync(torch)
+        prove_s = time.perf_counter() - t0
+    finally:
+        msm2.msm_device2 = real
+    N, S = pk.pk.S_repr.N, pk.S
+    p = pallas.scalar.p
+    io = [2, pow(2, pow(2, squares, p - 1), p)]
+    t0 = time.perf_counter()
+    snark.verify(PallasEngine, vk, io)
+    verify_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    spark_calls = calls.count(N)
+    log(f"shape {S.num_cons} x {S.num_vars}, nnz {PP.ck_floor(S)}, N = {N}, key {len(pk.ck)}; "
+        f"setup {setup_s:.2f} s, prove {prove_s:.2f} s, verify {verify_s:.2f} s; "
+        f"msm_device2 calls of N scalars {spark_calls}; launches {launches}")
+    tampered_fail(lambda: snark.verify(PallasEngine, vk, io), [
+        ("io", lambda: io.__setitem__(1, (io[1] + 1) % p),
+         lambda: io.__setitem__(1, (io[1] - 1) % p)),
+    ])
+    if not args.rehearse:
+        if N != 1 << DIRECT_LOG_N or len(pk.ck) != 1 << DIRECT_LOG_N:
+            raise PhaseError(f"N = {N}, key {len(pk.ck)}: 2^{DIRECT_LOG_N} expected")
+        missing = [k for k in COMPRESS_KERNELS if launches[k] == 0]
+        if spark_calls < 7 or missing:
+            raise PhaseError(f"the spark commits did not take msm_device2: {spark_calls} "
+                             f"calls of {N} scalars, kernels not launched {missing}")
+    return {"squares": squares, "N": N, "shape": [S.num_cons, S.num_vars],
+            "setup_s": setup_s, "prove_ms": prove_s * 1e3, "verify_ms": verify_s * 1e3,
+            "msm_device2_spark_calls": spark_calls, "launches": launches}
 
 
 def field_ubench(args, torch, dev) -> dict:
@@ -1642,9 +2107,13 @@ def run(args) -> dict:
     fold = fold_step(args, torch, dev, workers, ck, scal)
     comp = compress(args, torch, dev, fold["pp"], fold["rs"])
     kzg = kzg_path(args, torch, dev, workers)
+    spark = ppsnark_path(args, torch, dev, workers, kzg)
+    direct = direct_path(args, torch, dev)
     ubench = field_ubench(args, torch, dev)
     log("compression: " + json.dumps(comp))
-    log("KZG path: " + json.dumps(kzg))
+    log("KZG path: " + json.dumps({k: v for k, v in kzg.items() if k not in ("pp", "ptau_dir")}))
+    log("ppsnark path: " + json.dumps(spark))
+    log("DirectSNARK: " + json.dumps(direct))
     log("field microbenchmark: " + json.dumps(ubench))
     if not args.rehearse:
         # the bucket stage's contract: no K3 per call on any path (K3 runs
@@ -1675,12 +2144,14 @@ def run(args) -> dict:
         if any(commit[k] != v for k, v in want.items()):
             raise PhaseError(f"launches per commit {commit}, expected {want}")
     log(f"== done: all phases passed")
+    log("phase wall times (s): " + json.dumps(phase_walls()))
 
     rows = []
     for name in REPLACES:
         if name == "stage":
             row = dict(fold["row"])
-            row["max_abs_err"] = max(row["max_abs_err"], kzg["kernel_errs"]["stage"])
+            row["max_abs_err"] = max(row["max_abs_err"], kzg["kernel_errs"]["stage"],
+                                     spark["kernel_errs"].get("stage", 0))
         elif name in UBENCH_KERNELS:
             row = {k: ubench["rows"][name][k] for k in
                    ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1688,7 +2159,7 @@ def run(args) -> dict:
         else:
             ms, plain_ms, (b_ms, b_by) = timed[name]
             err = max(errs.get(name, 0), fold["kernel_errs"].get(name, 0),
-                      kzg["kernel_errs"].get(name, 0),
+                      kzg["kernel_errs"].get(name, 0), spark["kernel_errs"].get(name, 0),
                       comp["k1_err"] if name == "mont_mul" else 0,
                       comp["k5_err"] if name == "bucket_reduce" else 0)
             row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -1722,13 +2193,21 @@ def run(args) -> dict:
                 "kzg_compression": kzg["compress_launches"][name],
             },
             "kzg_path_launches": kzg["launches"][name],
+            "mercury_compress_launches": kzg["mercury"]["launches"][name],
+            "pp_path_launches": spark["launches"][name],
+            "pp_compress_launches": spark["compress_launches"][name],
+            "direct_launches": direct["launches"][name],
             "precompute_launches": {
                 "commit_key": msm["precompute_launches"][name],
                 "witness_key": fold["witness_precompute_launches"][name],
             },
         })
-        if name in kzg["shape_ms"]:
-            rows[-1]["kzg_shape_ms"] = kzg["shape_ms"][name]
+        if spark["timing"]:
+            rows[-1]["precompute_launches"]["spark_key"] = (
+                spark["timing"]["precompute_launches"][name])
+        for key, src in (("kzg_shape_ms", kzg), ("pp_shape_ms", spark)):
+            if name in src["shape_ms"]:
+                rows[-1][key] = src["shape_ms"][name]
     return {"smi": smi, "kernels": rows, "msm": msm}
 
 

@@ -3,8 +3,9 @@
 The JAX package keeps field vectors and bases as ``(N, 16)`` uint32 arrays
 of 16-bit Montgomery limbs. These functions take those arrays as numpy
 (``np.asarray`` of the JAX array) and build the port's objects on a given
-device, so both packages compute on the same state. They take numpy only
-and import nothing of the JAX package.
+device, so both packages compute on the same state. They take numpy (and
+ppsnark_keys the JAX package's key objects, read by attribute) and import
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -126,3 +127,75 @@ def public_params(engine1, engine2, F_arity: int, shape1: dict, rows1,
         shape(shape1, engine1), ck1,
         shape(shape2, engine2), commitment_key(engine2.curve, rows2, device),
     )
+
+
+_SPARK_FIELDS = ("row", "col", "val_A", "val_B", "val_C", "ts_row", "ts_col")
+
+
+def _point_rows(points) -> np.ndarray:
+    """(N, 65) uint8 rows x[32] | y[32] | inf[1] of affine points given by
+    their ``x``, ``y`` and ``infinity`` attributes."""
+    rows = np.zeros((len(points), 65), dtype=np.uint8)
+    for i, g in enumerate(points):
+        if g.infinity:
+            rows[i, 64] = 1
+            continue
+        rows[i, :32] = np.frombuffer(int(g.x).to_bytes(32, "little"), dtype=np.uint8)
+        rows[i, 32:64] = np.frombuffer(int(g.y).to_bytes(32, "little"), dtype=np.uint8)
+    return rows
+
+
+def ppsnark_keys(jax_pk, jax_vk, device=None):
+    """The port's ppsnark (PPProverKey, PPVerifierKey) from the JAX
+    package's, read by attribute: the engine by its name, the spark vectors
+    as lists, the spark commitments as affine points, and the evaluation
+    engine (IPA, HyperKZG or Mercury, by its module's name) with its keys:
+    IPA's commitment keys through commitment_key, HyperKZG's verifier key
+    (G, H, tau_H) as points; the keys' device MSMs run on `device`."""
+    import importlib
+
+    from nova_tpu_torch.curves.pairing import G2Point
+    from nova_tpu_torch.curves.spec import AffinePoint
+    from nova_tpu_torch.provider.engines import Engine
+    from nova_tpu_torch.provider.pedersen import Commitment
+    from nova_tpu_torch.spartan import ppsnark
+
+    engine = Engine._registry[jax_vk.engine.name]
+    curve = engine.curve
+    ee = importlib.import_module(
+        "nova_tpu_torch.provider." + jax_vk.ee.__module__.rsplit(".", 1)[-1]
+    ).EvaluationEngine
+
+    def key(ck):
+        return commitment_key(curve, _point_rows([ck.h] + list(ck.ck)), device)
+
+    def g2(pt):
+        return G2Point(tuple(int(v) for v in pt.x), tuple(int(v) for v in pt.y))
+
+    kind = type(jax_vk.ee_vk).__name__
+    if kind == "IPAVerifierKey":
+        from nova_tpu_torch.provider.ipa import IPAProverKey, IPAVerifierKey
+
+        ck_s = key(jax_pk.ee_pk.ck_s)
+        ee_pk, ee_vk = IPAProverKey(ck_s), IPAVerifierKey(key(jax_vk.ee_vk.ck_v), ck_s)
+    elif kind == "HyperKZGVerifierKey":
+        from nova_tpu_torch.provider.hyperkzg import HyperKZGProverKey, HyperKZGVerifierKey
+
+        G = jax_vk.ee_vk.G
+        ee_pk = HyperKZGProverKey()
+        ee_vk = HyperKZGVerifierKey(AffinePoint(curve, int(G.x), int(G.y), bool(G.infinity)),
+                                    g2(jax_vk.ee_vk.H), g2(jax_vk.ee_vk.tau_H))
+    else:
+        raise ValueError(f"unknown evaluation-engine key {kind}")
+
+    sc = jax_vk.S_comm
+    comms = [Commitment(AffinePoint(curve, int(c.point.x), int(c.point.y),
+                                    bool(c.point.infinity)))
+             for c in (getattr(sc, "comm_" + f) for f in _SPARK_FIELDS)]
+    S_comm = ppsnark.R1CSShapeSparkCommitment(sc.N, *comms)
+    jr = jax_pk.S_repr
+    S_repr = ppsnark.R1CSShapeSparkRepr.from_vectors(
+        engine.scalar, jr.N, *(getattr(jr, f) for f in _SPARK_FIELDS))
+    vk = ppsnark.PPVerifierKey(engine, jax_vk.num_cons, jax_vk.num_vars, S_comm, ee_vk, ee)
+    pk = ppsnark.PPProverKey(ee_pk, S_repr, S_comm, jax_pk.vk_digest, ee)
+    return pk, vk

@@ -18,9 +18,9 @@ route is the faster, and appends it to ``--out``.
 
     python3 nova_tpu_torch/perf/thresholds.py [--ptau FILE] [--out FILE]
 
-``--ptau`` is a ptau file of at least 2^17 G1 powers; the default is
-the one ``chip_smoke.py`` writes (tau drawn from its seed) into
-``nova_tpu_torch/_build/ptau/``, so run this after it.
+``--ptau`` is a ptau file of at least 2^17 G1 powers (2^17 are read);
+the default is the power-19 one ``chip_smoke.py`` writes (tau drawn from
+its seed) into ``nova_tpu_torch/_build/ptau/``, so run this after it.
 """
 
 from __future__ import annotations
@@ -135,7 +135,7 @@ def sweep(torch, ck, dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ptau", default=os.path.join(
-        ROOT, "nova_tpu_torch", "_build", "ptau", "ppot_pruned_17.ptau"))
+        ROOT, "nova_tpu_torch", "_build", "ptau", "ppot_pruned_19.ptau"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)

@@ -205,7 +205,9 @@ def write_test_ptau(path, tau: int, power: int) -> None:
         scalars.append(cur)
         cur = cur * tau % r
     if native.available():
-        g1 = native.ec_mul_many([g] * n, scalars)
+        # one shared fixed-base window table (32 mixed adds a scalar): the
+        # points of ec_mul_many for the 2^power + 1 multiples of one base
+        g1 = native.ec_fixed_mul_many(g, scalars)
     else:
         g1 = [g.mul(s) for s in scalars]
     g2gen = G2Point.generator()

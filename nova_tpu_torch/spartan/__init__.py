@@ -2,7 +2,7 @@
 reference: src/spartan/mod.rs:40-534).
 
 powers, batch_invert (Montgomery's trick), PolyEvalInstance/Witness
-batching of different sizes, the joint claim-reduction
+batching (same-size and different-size), the joint claim-reduction
 sumcheck (batch_eval_reduce / batch_eval_verify), and
 compute_eval_table_sparse (binding matrix row variables).
 """
@@ -86,6 +86,27 @@ class PolyEvalWitness:
                 out[i] = (out[i] + coeff * x) % pr
         return PolyEvalWitness(out)
 
+    @staticmethod
+    def batch(field: FieldSpec, p_vec: List[List[int]], s: int) -> "PolyEvalWitness":
+        """sum_k s^k * p_k of equal-size polynomials: an HVec through the
+        native binding when it is available, else an int list."""
+        assert all(len(q) == len(p_vec[0]) for q in p_vec)
+        pr = field.p
+        pws = powers(field, s, len(p_vec))
+        if native.available():
+            from nova_tpu_torch.ops.fvec import HVec
+            from nova_tpu_torch.r1cs import _vec_limbs
+
+            acc = np.zeros((len(p_vec[0]), 4), dtype=np.uint64)
+            for coeff, q in zip(pws, p_vec):
+                acc = native.vec_axpy_l(pr, acc, _vec_limbs(q, pr), coeff)
+            return PolyEvalWitness(HVec(pr, limbs=acc))
+        out = [0] * len(p_vec[0])
+        for coeff, q in zip(pws, p_vec):
+            for i, x in enumerate(q):
+                out[i] = (out[i] + coeff * x) % pr
+        return PolyEvalWitness(out)
+
 
 @dataclass
 class PolyEvalInstance:
@@ -95,6 +116,24 @@ class PolyEvalInstance:
     c: Commitment
     x: List[int]
     e: int
+
+    @staticmethod
+    def batch(
+        field: FieldSpec,
+        c_vec: Sequence[Commitment],
+        x: Sequence[int],
+        e_vec: Sequence[int],
+        s: int,
+    ) -> "PolyEvalInstance":
+        """Instances at one point: sum_k s^k * (c_k, e_k)."""
+        pr = field.p
+        pws = powers(field, s, len(c_vec))
+        e = sum(ei * w for ei, w in zip(e_vec, pws)) % pr
+        pt = None
+        for ci, w in zip(c_vec, pws):
+            term = ci.point.mul(w)
+            pt = term if pt is None else pt.add(term)
+        return PolyEvalInstance(Commitment(pt), list(x), e)
 
     @staticmethod
     def batch_diff_size(

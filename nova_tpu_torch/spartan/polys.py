@@ -165,9 +165,131 @@ class EqPolynomial:
         return EqPolynomial.evals_from_points(self.field, self.r)
 
 
+class MaskedEqPolynomial:
+    """eq(r, x) with the first 2^num_masked_vars entries zeroed
+    (src/spartan/polys/masked_eq.rs); ppsnark's WitnessBoundSumcheck."""
+
+    def __init__(self, eq: EqPolynomial, num_masked_vars: int):
+        self.eq = eq
+        self.num_masked_vars = num_masked_vars
+
+    def evaluate(self, rx: Sequence[int]) -> int:
+        """(eq_lo - mask_lo) * eq_hi with the split at n - m
+        (src/spartan/polys/masked_eq.rs:34-53)."""
+        field = self.eq.field
+        p = field.p
+        r = self.eq.r
+        assert len(rx) == len(r)
+        split = len(r) - self.num_masked_vars
+        eq_lo = EqPolynomial(field, r[:split]).evaluate(rx[:split])
+        eq_hi = EqPolynomial(field, r[split:]).evaluate(rx[split:])
+        mask_lo = 1
+        for a, b in zip(r[:split], rx[:split]):
+            mask_lo = mask_lo * ((1 - a) * (1 - b) % p) % p
+        return (eq_lo - mask_lo) * eq_hi % p
+
+    def evals(self) -> List[int]:
+        """The eq table with the first 2^m entries zeroed
+        (masked_eq.rs:57-76)."""
+        tab = EqPolynomial.evals_from_points(self.eq.field, self.eq.r)
+        for i in range(1 << self.num_masked_vars):
+            tab[i] = 0
+        return tab
+
+
+class PowPolynomial:
+    """pow(t, x) = t^{sum_i x_i 2^i}: the tensor (1, t, t^2, ...)
+    (src/spartan/polys/power.rs)."""
+
+    def __init__(self, field: FieldSpec, t: int, ell: int):
+        self.field = field
+        self.t = t % field.p
+        self.ell = ell
+
+    def coordinates(self) -> List[int]:
+        """[t^{2^0}, t^{2^1}, ..., t^{2^{ell-1}}]."""
+        p = self.field.p
+        out = []
+        cur = self.t
+        for _ in range(self.ell):
+            out.append(cur)
+            cur = cur * cur % p
+        return out
+
+    def evals(self) -> List[int]:
+        """(1, t, t^2, ..., t^{2^ell - 1})."""
+        p = self.field.p
+        out = [1] * (1 << self.ell)
+        for i in range(1, len(out)):
+            out[i] = out[i - 1] * self.t % p
+        return out
+
+    def evaluate(self, rx: Sequence[int]) -> int:
+        p = self.field.p
+        acc = 1
+        for coord, x in zip(self.coordinates(), rx):
+            acc = acc * ((x * coord + (1 - x)) % p) % p
+        return acc
+
+    def split_evals(self, len_left: int, len_right: int) -> List[int]:
+        """Two tensor factors whose outer product equals evals()
+        (src/spartan/polys/power.rs:62-90): left ++ right."""
+        p = self.field.p
+        assert len_left * len_right == 1 << self.ell
+        left = [1] * len_left
+        for i in range(1, len_left):
+            left[i] = left[i - 1] * self.t % p
+        step = left[-1] * self.t % p
+        right = [1] * len_right
+        for i in range(1, len_right):
+            right[i] = right[i - 1] * step % p
+        return left + right
+
+
+class IdentityPolynomial:
+    """The multilinear polynomial that maps x in {0,1}^ell to its integer
+    value (src/spartan/polys/identity.rs)."""
+
+    def __init__(self, field: FieldSpec, ell: int):
+        self.field = field
+        self.ell = ell
+
+    def evaluate(self, r: Sequence[int]) -> int:
+        assert len(r) == self.ell
+        p = self.field.p
+        acc = 0
+        for i, ri in enumerate(r):
+            acc = (acc + (1 << (self.ell - 1 - i)) * ri) % p
+        return acc
+
+
 # ---------------------------------------------------------------------------
 # univariate round polynomials
 # ---------------------------------------------------------------------------
+
+def gaussian_elimination(field: FieldSpec, matrix: List[List[int]]) -> List[int]:
+    """Solve the augmented system (src/spartan/polys/univariate.rs:218)."""
+    p = field.p
+    size = len(matrix)
+    for i in range(size - 1):
+        # partial pivot
+        piv = max(range(i, size), key=lambda r: 1 if matrix[r][i] % p != 0 else 0)
+        if matrix[piv][i] % p == 0:
+            raise ZeroDivisionError("singular matrix")
+        matrix[i], matrix[piv] = matrix[piv], matrix[i]
+        inv = field.inv(matrix[i][i] % p)
+        for r in range(i + 1, size):
+            factor = matrix[r][i] * inv % p
+            for c in range(i, size + 1):
+                matrix[r][c] = (matrix[r][c] - factor * matrix[i][c]) % p
+    result = [0] * size
+    for i in range(size - 1, -1, -1):
+        acc = matrix[i][size]
+        for c in range(i + 1, size):
+            acc = (acc - matrix[i][c] * result[c]) % p
+        result[i] = acc * field.inv(matrix[i][i] % p) % p
+    return result
+
 
 class UniPoly:
     """Univariate polynomial, little-endian coefficients
@@ -187,6 +309,22 @@ class UniPoly:
         while len(coeffs) > 1 and coeffs[-1] == 0:
             coeffs.pop()
         return UniPoly(field, coeffs)
+
+    @staticmethod
+    def from_evals(field: FieldSpec, evals: Sequence[int]) -> "UniPoly":
+        """Interpolate from P(0), P(1), ..., P(n-1)."""
+        n = len(evals)
+        if n == 1:
+            return UniPoly(field, [evals[0]])
+        p = field.p
+        matrix = []
+        for i in range(n):
+            row = [1]
+            for _ in range(1, n):
+                row.append(row[-1] * i % p)
+            row.append(evals[i] % p)
+            matrix.append(row)
+        return UniPoly(field, gaussian_elimination(field, matrix))
 
     @staticmethod
     def from_evals_deg2(field: FieldSpec, evals: Sequence[int]) -> "UniPoly":

@@ -221,6 +221,53 @@ class SumcheckProof:
         return SumcheckProof(polys), r, [poly_A.Z[0], poly_B.Z[0], poly_C.Z[0]]
 
     @staticmethod
+    def prove_batched_cubic(
+        field: FieldSpec,
+        claim: int,
+        taus: Sequence[int],
+        polys_A: List[MultilinearPolynomial],
+        polys_B: List[MultilinearPolynomial],
+        polys_C: List[MultilinearPolynomial],
+        alphas: Sequence[int],
+        transcript,
+    ) -> Tuple["SumcheckProof", List[int], List[List[int]]]:
+        """sum_x eq(tau,x) * sum_k alpha_k (A_k B_k - C_k) = claim
+        (src/spartan/sumcheck.rs:509-577)."""
+        p = field.p
+        k = len(polys_A)
+        assert k and len(polys_B) == k and len(polys_C) == k and len(alphas) == k
+        poly_eq = MultilinearPolynomial(field, EqPolynomial.evals_from_points(field, list(taus)))
+        r: List[int] = []
+        out_polys: List[CompressedUniPoly] = []
+        claim_per_round = claim % p
+        for _ in range(len(taus)):
+            half = len(polys_A[0]) // 2
+            e0 = c3 = em1 = 0
+            EZ = poly_eq.Z
+            for i in range(half):
+                elo = EZ[i]
+                de = EZ[half + i] - elo
+                s0 = sm1 = sc3 = 0
+                for j in range(k):
+                    AZ, BZ, CZ = polys_A[j].Z, polys_B[j].Z, polys_C[j].Z
+                    alo, blo, clo = AZ[i], BZ[i], CZ[i]
+                    da, db, dc = AZ[half + i] - alo, BZ[half + i] - blo, CZ[half + i] - clo
+                    a = alphas[j]
+                    s0 += a * (alo * blo - clo)
+                    sc3 += a * (da * db)
+                    sm1 += a * ((alo - da) * (blo - db) - (clo - dc))
+                e0 += elo * s0
+                c3 += de * sc3
+                em1 += (elo - de) * sm1
+            r_i, claim_per_round = SumcheckProof._round(
+                field, out_polys, transcript, claim_per_round, (e0 % p, c3 % p, em1 % p), True)
+            r.append(r_i)
+            for pl in (*polys_A, *polys_B, *polys_C, poly_eq):
+                pl.bind_poly_var_top(r_i)
+        claims = [[polys_A[j].Z[0], polys_B[j].Z[0], polys_C[j].Z[0]] for j in range(k)]
+        return SumcheckProof(out_polys), r, claims
+
+    @staticmethod
     def prove_batch_eval(
         field: FieldSpec,
         claims: Sequence[int],

@@ -110,14 +110,17 @@ def _compress(pp, RS, CS, KZG, circuit, seed, monkeypatch):
     return CS.prove(pp, pk, rs), vk, zi
 
 
-def _kzg_snark_fields(s):
-    """Every field of a RelaxedR1CSSNARK whose evaluation argument is
-    HyperKZG's."""
-    a = s.eval_arg
+def _kzg_arg_fields(a):
+    """Every field of a HyperKZG EvaluationArgument."""
+    return ([_pt(c) for c in a.com], [_pt(c) for c in a.w], [list(row) for row in a.v])
+
+
+def _kzg_snark_fields(s, arg_fields=_kzg_arg_fields):
+    """Every field of a RelaxedR1CSSNARK, its evaluation argument's by
+    `arg_fields` (HyperKZG's by default)."""
     return (_polys(s.sc_proof_outer), list(s.claims_outer), s.eval_E,
             _polys(s.sc_proof_inner), s.eval_W, _polys(s.sc_proof_batch),
-            list(s.evals_batch), [_pt(c) for c in a.com], [_pt(c) for c in a.w],
-            [list(row) for row in a.v])
+            list(s.evals_batch), arg_fields(s.eval_arg))
 
 
 def _ipa_snark_fields(s):
@@ -126,7 +129,9 @@ def _ipa_snark_fields(s):
     return snark_fields(s)
 
 
-def _proof_fields(c):
+def _proof_fields(c, arg_fields=_kzg_arg_fields):
+    """Every field of a CompressedSNARK, the primary's evaluation argument
+    by `arg_fields`."""
     out = {}
     for name in ("r_U_secondary", "r_U_primary", "l_ur_secondary", "l_ur_primary"):
         out[name] = _relaxed(getattr(c, name))
@@ -137,7 +142,7 @@ def _proof_fields(c):
                  "err_blind_r_Wn_primary", "wit_blind_r_Wn_secondary",
                  "err_blind_r_Wn_secondary"):
         out[name] = getattr(c, name)
-    out["snark_primary"] = _kzg_snark_fields(c.snark_primary)
+    out["snark_primary"] = _kzg_snark_fields(c.snark_primary, arg_fields)
     out["snark_secondary"] = _ipa_snark_fields(c.snark_secondary)
     out["zn"] = list(c.zn)
     return out

@@ -46,6 +46,8 @@ def test_import_leaves_jax_and_nova_tpu_out():
         "import nova_tpu_torch.curves.pairing, nova_tpu_torch.provider.ptau\n"
         "import nova_tpu_torch.provider.hyperkzg, nova_tpu_torch.curves.msm_host\n"
         "import nova_tpu_torch.perf.thresholds\n"
+        "import nova_tpu_torch.spartan.ppsnark, nova_tpu_torch.spartan.direct\n"
+        "import nova_tpu_torch.provider.mercury\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nova_tpu' or m.startswith('nova_tpu.')]\n"
         "assert not bad, bad\n"
