@@ -4,7 +4,8 @@ IVC fold step (RecursiveSNARK.prove_step) at a 2^17-constraint primary, its
 compression (CompressedSNARK), the same on BN254/Grumpkin with a
 powers-of-tau key and HyperKZG and Mercury compression, its compression
 with the preprocessing Spartan (ppsnark), DirectSNARK with ppsnark on
-Pallas, and the field microbenchmark.
+Pallas, the SHA-256 step circuit's IVC, NeutronNova's IVC, checkpoints and
+proofs as bytes, and the field microbenchmark.
 
     python3 chip_smoke.py                # 2^16 commit, 2^17 fold steps
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
@@ -12,6 +13,8 @@ Pallas, and the field microbenchmark.
                                          # power-18 ptau file, ppsnark's
                                          # commits on the native host MSM,
                                          # a 500-square DirectSNARK, a
+                                         # 3-byte SHA-256 message, a 2^14
+                                         # Neutron structure, a
                                          # 2^10-column microbenchmark),
                                          # plain versions, no result
 
@@ -119,16 +122,45 @@ result line):
 11. DirectSNARK with ppsnark on Pallas (a 32,700-square chain: N = 2^17,
    phase 5's key): setup (the spark commits must take msm_device2), prove,
    verify, and a changed io failing;
+12. the SHA-256 IVC (benches/sha256.py's step circuit on a 128-byte
+   message drawn from SEED; a ~82k-constraint Pallas primary, above
+   DEVICE_THRESHOLD) with phase 5's cached keys: setup on CUDA, new, 3
+   prove_steps (the bump, the tape build, one timed replay, by phase) and
+   verify; the counts reset just before new and read just after verify
+   (K1, K5 and B6 must launch, K3 not in the replay); the gadget's digest
+   bits equal hashlib.sha256 of the message; phase 6's checks on this
+   path's inputs (the fresh primary witness by msm_device2, msm_device3,
+   the host Pippenger and the native host MSM; B6 in its three modes, K1,
+   K3 and K5 in the rebuilt precompute, K4, K2s and K2 in the running
+   witness's commit, the device cross-term; all bitwise) and each kernel
+   timed at this path's shapes;
+13. NeutronNova IVC on Pallas: a squaring chain fills the padded 2^17 x
+   2^17 structure (the trivial augmented counts read from a ShapeCS),
+   phase 5's key; setup, new, 3 prove_steps (by phase) and verify, whose
+   output must be z0^(2^(3 * squares)); the counts reset just before new
+   and read just after verify (K1, K5 and B6 must launch); the folded
+   instance with T + 1 fails Structure.is_sat; the W commit against the
+   native host MSM and B6 against its plain version on its stage inputs;
+14. bytes: phase 5's RecursiveSNARK saved with checkpoint and loaded under
+   the same pp (its running witness back on the card), one more
+   prove_step on it and on the unbroken object with the same seeded
+   randomness (equal field by field, both verify); the checkpoint loaded
+   under phase 12's pp raises; phase 7's CompressedSNARK through
+   proof_to_bytes / proof_from_bytes verifies, a flipped byte inside a
+   point fails to load, a dumps_evm round trip gives the same bytes and
+   verifies; profiling.device_trace around one replayed step writes a
+   trace file;
 8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
    ITERS = 20) with the counts reset just before and read just after; P1
    and P2 (one kernel, two limb layouts) against their plain versions
    (bitwise) and timed beside their bound: one Montgomery product per
    column and step.
 
-Phases run in the order 1-7, 9, 10, 11, 8; each header line gives the
+Phases run in the order 1-7, 9-14, 8; each header line gives the
 seconds since the start. After them, launches are checked: K3
 (a key's window precompute only) must not launch in a commit, a replayed
-prove_step (either curve cycle), an msm_device2 or a compression, and must
+prove_step (either curve cycle, or the SHA-256 circuit's), an msm_device2
+or a compression, and must
 launch once a window in each key's precompute
 (16 for the commit key, 19 for the witness key); a commit must launch K2
 twice, K5 once and K2s once.
@@ -215,6 +247,11 @@ KZG_KERNELS = ("mont_mul", "xyzz_add", "accum", "suffix_segmented", "bucket_redu
 # phase 11: DirectSNARK's squaring chain on Pallas (nnz <= 2^17 and
 # 2 num_vars <= 2^17, so N = 2^17 and the key is phase 5's 2^17 + 1 one)
 DIRECT_SQUARES, REHEARSE_DIRECT_SQUARES, DIRECT_LOG_N = 32700, 500, 17
+# phase 12: the SHA-256 message (benches/sha256.py's larger size: a
+# ~82k-constraint primary, above DEVICE_THRESHOLD) and its prove_steps;
+# phase 13: NeutronNova's prove_steps (the primary padded as phase 5's)
+SHA_MSG_BYTES, REHEARSE_SHA_MSG_BYTES, SHA_STEPS = 128, 3, 3
+NEUTRON_STEPS = 3
 # the kernel calls phases 6 and 9 capture on their path and hold bitwise
 PATH_CHECKS = {"mont_mul", "xyzz_double", "bucket_reduce", "accum", "suffix_segmented",
                "xyzz_add/commit", "mont_mul/spmv"}
@@ -929,7 +966,7 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
         "msm_device2_launches": warm, "witness_precompute_launches": precompute,
         "k3_window": k3_window, "witness_precompute_ms": precompute_t,
         "witness_window": times,
-        "pp": pp, "rs": rs,
+        "pp": pp, "rs": rs, "circuit": circuit, "squares": squares,
     }
 
 
@@ -1146,6 +1183,7 @@ def compress(args, torch, dev, pp, rs) -> dict:
     log(f"randomizer W commit ({len(W.W)} scalars) == native host MSM")
     return {"setup_s": setup_s, "prove_ms": prove_s * 1e3, "phase_ms": phases,
             "verify_ms": verify_s * 1e3, "launches": launches, "k1_err": k1_err,
+            "snark": snark, "vk": vk, "steps": rs.i,
             "k1_rows": k1_rows, "k5_err": k5_err, "outer_route": o["route"],
             "outer_rounds": o["rounds"],
             "outer_ms": o["ms"], "other_route_ms": other_ms}
@@ -1683,6 +1721,375 @@ def direct_path(args, torch, dev) -> dict:
             "msm_device2_spark_calls": spark_calls, "launches": launches}
 
 
+def sha256_circuit(msg: bytes):
+    """benches/sha256.py's step circuit on `msg` instead of its all-zero
+    bits: SHA-256 of the message's bits, each allocated by a closure that
+    returns it (so a witness tape replays it); z passes through. The
+    digest's Booleans of the latest synthesis stay on `digest` (a replay
+    refreshes their values)."""
+    from nova_tpu_torch.frontend.boolean import AllocatedBit, Boolean
+    from nova_tpu_torch.frontend.sha256 import sha256
+    from nova_tpu_torch.nova.circuit import StepCircuit
+
+    bits = [bool((byte >> (7 - i)) & 1) for byte in msg for i in range(8)]
+
+    class Sha256Circuit(StepCircuit):
+        digest = None
+
+        def arity(self):
+            return 1
+
+        def synthesize(self, cs, z):
+            self.digest = sha256(cs, [Boolean.from_bit(AllocatedBit.alloc(cs, lambda b=b: b))
+                                      for b in bits])
+            return [z[0]]
+
+    return Sha256Circuit()
+
+
+def sha256_path(args, torch, dev, workers: int) -> dict:
+    """Phase 12: the SHA-256 step circuit (benches/sha256.py) on a
+    SHA_MSG_BYTES-byte message drawn from SEED, Pallas/Vesta with phase 5's
+    cached keys: PublicParams.setup on the card, new, SHA_STEPS prove_steps
+    (the bump, the tape build, one timed replay, by phase) and verify, the
+    counts reset just before new and read just after verify (K1, K5 and B6
+    must launch; K3 not in the replay); the gadget's digest bits equal
+    hashlib's; then phase 6's checks on this path's inputs (path_kernels:
+    the fresh primary witness by msm_device2, msm_device3 and the host
+    Pippenger, B6 in its three modes, K1, K3 and K5 in the rebuilt
+    precompute, K4, K2s and K2 in the running witness's commit, the device
+    cross-term), the fresh witness also against the native host MSM, and
+    msm_device2 timed on it."""
+    import hashlib
+
+    import numpy as np
+
+    from nova_tpu_torch import _build, constants, native
+    from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.nova.ivc import PublicParams
+    from nova_tpu_torch.ops import msm2
+    from nova_tpu_torch.provider.engines import PallasEngine, VestaEngine
+
+    nbytes = REHEARSE_SHA_MSG_BYTES if args.rehearse else SHA_MSG_BYTES
+    reps = 1 if args.rehearse else 5
+    log(f"== phase 12: SHA-256 IVC (a {nbytes}-byte message, Pallas/Vesta, "
+        f"{SHA_STEPS} prove_steps)")
+    msg = np.random.default_rng(SEED + 12).bytes(nbytes)
+    circuit = sha256_circuit(msg)
+    t0 = time.perf_counter()
+    pp = PublicParams.setup(PallasEngine, VestaEngine, circuit, device=dev)
+    setup_s = time.perf_counter() - t0
+    cons, nvars = pp.num_constraints()[0], pp.num_variables()[0]
+    log(f"setup: constraints {pp.num_constraints()} ({cons - AUGMENTED_PRIMARY_CONS} in the "
+        f"gadget), variables {pp.num_variables()}, keys {len(pp.ck_primary)}/"
+        f"{len(pp.ck_secondary)} on {pp.ck_primary.device}, {setup_s:.1f} s")
+    if not args.rehearse and cons < constants.DEVICE_THRESHOLD:
+        raise PhaseError(f"the SHA-256 primary has {cons} constraints, under DEVICE_THRESHOLD")
+
+    os.environ["NOVA_PROFILE"] = "1"
+    run = drive_steps(torch, pp, circuit, SHA_STEPS, 0, pallas.scalar.p)
+    del os.environ["NOVA_PROFILE"]
+    launches = dict(_build.LAUNCHES)
+    rs, step_launches, step_phases = run["rs"], run["step_launches"], run["step_phases"]
+    got = 0
+    for b in circuit.digest:
+        got = (got << 1) | (1 if b.get_value() else 0)
+    want = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+    if got != want:
+        raise PhaseError(f"the gadget's digest {got:064x} != hashlib's {want:064x}")
+    log(f"digest after the replayed step == hashlib.sha256: {want:064x}")
+    log(f"SHA-256 path launches (new to verify) {launches}; replayed step "
+        f"{step_launches[2:]}; replayed phases (ms) {json.dumps(step_phases[2:])}")
+    if not args.rehearse:
+        missing = [k for k in ("mont_mul", "bucket_reduce", "stage") if launches[k] == 0]
+        if missing:
+            raise PhaseError(f"kernels not launched on the SHA-256 path: {missing}")
+        k3 = [sl["xyzz_double"] for sl in step_launches[2:]]
+        if any(k3):
+            raise PhaseError(f"K3 launched in a replayed SHA-256 step: {k3}")
+
+    chk = path_kernels(args, torch, dev, pp, rs, workers, reps, timed=True)
+    witness, db, got2 = chk["witness"], chk["db"], chk["got2"]
+    ck = pp.ck_primary
+    host = native.msm_cached(ck.curve, ck.host_arrays(len(witness)), witness)
+    if host != got2:
+        raise PhaseError("the fresh SHA-256 witness: msm_device2 != the native host MSM")
+    ones = sum(1 for w in witness if w == 1)
+    zeros = sum(1 for w in witness if w == 0)
+    log(f"fresh witness == native host MSM; {len(witness)} scalars: {zeros} zero, {ones} one, "
+        f"{len(witness) - zeros - ones} other")
+    ts = []
+    for _ in range(3 if not args.rehearse else 1):
+        t0 = time.perf_counter()
+        msm2.msm_device2(witness, device_bases=db, reuse=True)
+        sync(torch)
+        ts.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    native.msm_cached(ck.curve, ck.host_arrays(len(witness)), witness)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    shapes = shape_times(torch, list(chk["seen"].items()) + [("stage", chk["stage_first"])],
+                         reps)
+    log(f"msm_device2 on the witness {statistics.median(ts) * 1e3:.1f} ms (native host MSM "
+        f"{native_ms:.1f} ms); kernels at the SHA-256 path's shapes: {json.dumps(shapes)}")
+    replay = step_phases[2:]
+    return {
+        "message_bytes": nbytes, "constraints": cons, "variables": nvars,
+        "gadget_constraints": cons - AUGMENTED_PRIMARY_CONS, "setup_s": setup_s,
+        "new_s": run["new_s"], "prove_step_all_ms": [t * 1e3 for t in run["step_s"]],
+        "phase_ms": {k: statistics.median(ph.get(k, 0.0) for ph in replay) for k in replay[0]},
+        "verify_ms": run["verify_s"] * 1e3, "launches": launches,
+        "launches_per_replayed_step": step_launches[2:], "verify_launches": run["verify_launches"],
+        "witness": {"n": len(witness), "zero": zeros, "one": ones},
+        "msm_device2_ms": statistics.median(ts) * 1e3, "native_msm_ms": native_ms,
+        "stage_modes": chk["stage_rows"], "kernel_errs": chk["kernel_errs"],
+        "commit_T_ms": chk["commit_T_ms"], "shape_ms": shapes, "pp": pp,
+    }
+
+
+def neutron_path(args, torch, dev) -> dict:
+    """Phase 13: NeutronNova IVC on Pallas with a squaring chain that fills
+    the augmented circuit's padded 2^17 x 2^17 structure (its trivial
+    counts read from a ShapeCS), phase 5's key: setup on the card, new, NEUTRON_STEPS
+    prove_steps (by phase) and verify, which must return
+    z0^(2^(steps * squares)); the counts reset just before new and read just
+    after verify (K1, K5 and B6 must launch); the folded instance with
+    T + 1 fails Structure.is_sat; the last step's W commit against the
+    native host MSM, and B6 against its plain version in its modes on the
+    stage inputs of that commit."""
+    from nova_tpu_torch import _build, native, profiling
+    from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.errors import NovaError
+    from nova_tpu_torch.frontend.constraint_system import ShapeCS
+    from nova_tpu_torch.neutron import FoldedInstance
+    from nova_tpu_torch.neutron.circuit import NeutronAugmentedCircuit
+    from nova_tpu_torch.neutron.ivc import PublicParams, RecursiveSNARK
+    from nova_tpu_torch.nova.circuit import TrivialCircuit
+    from nova_tpu_torch.ops import msm2
+    from nova_tpu_torch.provider.engines import PallasEngine, VestaEngine
+    from nova_tpu_torch.provider.pedersen import CommitmentEngine
+    from nova_tpu_torch.provider.poseidon import PoseidonROConstants
+
+    log_cons = REHEARSE_FOLD_LOG_CONS if args.rehearse else FOLD_LOG_CONS
+    log(f"== phase 13: NeutronNova IVC (Pallas, 2^{log_cons} constraints, "
+        f"{NEUTRON_STEPS} prove_steps)")
+    # one constraint and one variable a square: the chain brings the
+    # variables (the trivial circuit has more of them than constraints) to
+    # 2^log_cons - 1, so the structure pads to 2^log_cons x 2^log_cons.
+    # (R1CSShape.pad keeps a shape's unpadded matrices when its variables
+    # are already a power of two, as the JAX package's does; the host SpMV
+    # then returns fewer rows than the padded count.)
+    cs = ShapeCS(PallasEngine.scalar)
+    NeutronAugmentedCircuit(None, TrivialCircuit(),
+                            PoseidonROConstants(PallasEngine.scalar)).synthesize(cs)
+    trivial = cs.r1cs_shape()
+    squares = (1 << log_cons) - max(trivial.num_cons, trivial.num_vars) - 1
+    circuit = square_chain(squares)
+    t0 = time.perf_counter()
+    pp = PublicParams.setup(PallasEngine, VestaEngine, circuit, device=dev)
+    setup_s = time.perf_counter() - t0
+    S = pp.structure.S
+    log(f"setup: the trivial augmented circuit has {trivial.num_cons} constraints and "
+        f"{trivial.num_vars} variables, {squares} squares; structure "
+        f"{S.num_cons} x {S.num_vars} (left {pp.structure.left}, right "
+        f"{pp.structure.right}), key {len(pp.ck)} on {pp.ck.device}, {setup_s:.1f} s")
+    if S.num_cons != 1 << log_cons or len(pp.ck) != 1 << log_cons:
+        raise PhaseError(f"the Neutron structure has {S.num_cons} constraints, its key "
+                         f"{len(pp.ck)} generators")
+
+    z0 = [2]
+    p = pallas.scalar.p
+    os.environ["NOVA_PROFILE"] = "1"
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rs = RecursiveSNARK.new(pp, circuit, z0)
+    sync(torch)
+    new_s = time.perf_counter() - t0
+    step_s, step_phases, step_launches = [], [], []
+    for _ in range(NEUTRON_STEPS):
+        before = dict(_build.LAUNCHES)
+        profiling.global_reset()
+        t0 = time.perf_counter()
+        rs.prove_step(pp, circuit)
+        sync(torch)
+        step_s.append(time.perf_counter() - t0)
+        step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
+        step_launches.append(launch_delta(_build, before))
+    del os.environ["NOVA_PROFILE"]
+    t0 = time.perf_counter()
+    out = rs.verify(pp, NEUTRON_STEPS, z0)
+    sync(torch)
+    verify_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = pow(z0[0], pow(2, squares * NEUTRON_STEPS, p - 1), p)
+    if out != [want]:
+        raise PhaseError(f"Neutron verify returned {out}, expected [{want}]")
+    log(f"new {new_s:.2f} s; prove_step s {[round(t, 3) for t in step_s]}; verify "
+        f"{verify_s:.2f} s == z0^(2^({squares} * {NEUTRON_STEPS})) mod p; phases (ms) "
+        f"{json.dumps(step_phases[1:])}; launches {launches}")
+    if not args.rehearse:
+        missing = [k for k in ("mont_mul", "bucket_reduce", "stage") if launches[k] == 0]
+        if missing:
+            raise PhaseError(f"kernels not launched on the Neutron path: {missing}")
+
+    U = rs.r_U
+    bad = FoldedInstance(U.comm_W, U.comm_E, (U.T + 1) % p, U.u, U.X)
+    try:
+        pp.structure.is_sat(pp.ck, bad, rs.r_W)
+    except NovaError:
+        log("the folded instance with T + 1 fails Structure.is_sat")
+    else:
+        raise PhaseError("a folded instance with T + 1 satisfied the structure")
+
+    W = rs.l_w
+    ck = pp.ck
+    got, captured = recorded_stages(lambda: CommitmentEngine.commit(ck, W.W, W.r_W))
+    host = native.msm_cached(ck.curve, ck.host_arrays(len(W.W)), W.W).add(ck.h.mul(W.r_W))
+    if got.point != host or got != rs.l_u.comm_W:
+        raise PhaseError("the Neutron W commit != the native host MSM")
+    log(f"W commit ({len(W.W)} scalars) == native host MSM == l_u.comm_W")
+    stage_rows, stage_err = {}, 0
+    if captured:
+        stage_rows, stage_err, _ = stage_modes(torch, captured, 1, timed=False)
+    elif not args.rehearse:
+        raise PhaseError("the Neutron W commit launched no B6 stage")
+    return {
+        "trivial": [trivial.num_cons, trivial.num_vars], "squares": squares,
+        "constraints": trivial.num_cons + squares, "setup_s": setup_s, "new_s": new_s,
+        "prove_step_all_ms": [t * 1e3 for t in step_s], "phase_ms": step_phases,
+        "verify_ms": verify_s * 1e3, "launches": launches,
+        "launches_per_step": step_launches, "stage_modes": stage_rows,
+        "kernel_errs": {"stage": stage_err},
+    }
+
+
+def _ivc_state(rs) -> dict:
+    """A Nova RecursiveSNARK's fields as host ints and affine coordinates."""
+    from nova_tpu_torch.ops.fvec import as_list
+
+    return {
+        "i": rs.i, "zi": list(rs.zi), "ri": (rs.ri_primary, rs.ri_secondary),
+        "U": [(U.comm_W.to_coordinates(), U.comm_E.to_coordinates(), list(U.X), U.u)
+              for U in (rs.r_U_primary, rs.r_U_secondary)],
+        "W": [(as_list(W.W), as_list(W.E), W.r_W, W.r_E)
+              for W in (rs.r_W_primary, rs.r_W_secondary)],
+        "l_u": (rs.l_u_secondary.comm_W.to_coordinates(), list(rs.l_u_secondary.X)),
+        "l_w": (as_list(rs.l_w_secondary.W), rs.l_w_secondary.r_W),
+    }
+
+
+def bytes_path(args, torch, fold: dict, comp: dict, other_pp) -> dict:
+    """Phase 14: proofs and checkpoints as bytes. Phase 5's RecursiveSNARK
+    (its running witness on the card) saved with checkpoint, loaded under
+    the same pp, one more prove_step on it and on the unbroken object with
+    secrets.randbelow drawn from one seeded stream for each: both verify
+    and are equal field by field; the checkpoint loaded under `other_pp`
+    raises; phase 7's CompressedSNARK through proof_to_bytes /
+    proof_from_bytes verifies, and with a flipped byte inside a point's
+    coordinate fails to load; a dumps_evm round trip gives the same bytes
+    and verifies; device_trace around one replayed step writes a trace."""
+    import random
+    import secrets
+    import shutil
+
+    from nova_tpu_torch import checkpoint, native, profiling, serde
+    from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.errors import NovaError
+    from nova_tpu_torch.ops.fvec import FVec
+
+    log("== phase 14: proofs and checkpoints as bytes")
+    pp, rs, circuit = fold["pp"], fold["rs"], fold["circuit"]
+    d = os.path.join(native.BUILD_ROOT, "bytes")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    path = os.path.join(d, "ivc.ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save_recursive_snark(path, pp, rs)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    resumed = checkpoint.load_recursive_snark(path, pp)
+    load_s = time.perf_counter() - t0
+    W = resumed.r_W_primary.W
+    log(f"checkpoint after step {rs.i}: {ckpt_bytes} B, save {save_s:.2f} s, "
+        f"load {load_s:.2f} s; the running witness back as "
+        f"{type(W).__name__} on {getattr(W, 'device', None)}")
+    if not args.rehearse and (not isinstance(W, FVec)
+                              or W.device.type != pp.ck_primary.device.type):
+        raise PhaseError("the resumed running witness is not on the key's device")
+
+    step_ms = {}
+    real = secrets.randbelow
+    try:
+        for label, obj in (("resumed", resumed), ("unbroken", rs)):
+            rnd = random.Random(SEED + 14)
+            secrets.randbelow = lambda n, _r=rnd: _r.randrange(n)
+            t0 = time.perf_counter()
+            obj.prove_step(pp, circuit)
+            sync(torch)
+            step_ms[label] = (time.perf_counter() - t0) * 1e3
+    finally:
+        secrets.randbelow = real
+    if _ivc_state(resumed) != _ivc_state(rs):
+        raise PhaseError("the resumed prove_step differs from the unbroken run's")
+    p = pallas.scalar.p
+    want = [pow(2, pow(2, fold["squares"] * rs.i, p - 1), p)]
+    outs = (resumed.verify(pp, rs.i, [2]), rs.verify(pp, rs.i, [2]))
+    if outs != (want, want):
+        raise PhaseError(f"resumed/unbroken verify returned {outs}, expected {want}")
+    log(f"one more prove_step (ms) {json.dumps(step_ms)} (the resumed object builds its "
+        f"tape again); equal field by field; both verify at step {rs.i}")
+    try:
+        checkpoint.load_recursive_snark(path, other_pp)
+    except NovaError:
+        log("the checkpoint loaded under another pp raises")
+    else:
+        raise PhaseError("a checkpoint loaded under another pp")
+
+    snark, vk, steps = comp["snark"], comp["vk"], comp["steps"]
+    t0 = time.perf_counter()
+    raw = checkpoint.proof_to_bytes(snark)
+    back = checkpoint.proof_from_bytes(raw)
+    rt_s = time.perf_counter() - t0
+    if back.verify(vk, steps, [2]) != list(snark.zn) or serde.dumps(back) != raw[8:]:
+        raise PhaseError("the CompressedSNARK's bytes did not round-trip")
+    curve = snark.r_U_primary.comm_W.point.curve.name.encode()
+    tag = b"PS" + len(curve).to_bytes(4, "big") + curve
+    bad = bytearray(raw)
+    bad[bad.index(tag) + len(tag) + 1 + 5 + 3] ^= 1
+    try:
+        checkpoint.proof_from_bytes(bytes(bad))
+    except NovaError:
+        pass
+    else:
+        raise PhaseError("a proof with a flipped byte inside a point loaded")
+    evm = serde.dumps_evm(snark)
+    back = serde.loads_evm(evm)
+    if serde.dumps_evm(back) != evm or back.verify(vk, steps, [2]) != list(snark.zn):
+        raise PhaseError("the dumps_evm round trip failed")
+    log(f"CompressedSNARK: {len(raw)} B round-trips and verifies ({rt_s:.2f} s), a flipped "
+        f"byte inside a point fails to load; dumps_evm {len(evm)} B round-trips")
+
+    tdir = os.path.join(d, "trace")
+    t0 = time.perf_counter()
+    with profiling.device_trace(tdir):
+        rs.prove_step(pp, circuit)
+        sync(torch)
+    trace_s = time.perf_counter() - t0
+    files = os.listdir(tdir)
+    if len(files) != 1 or not os.path.getsize(os.path.join(tdir, files[0])):
+        raise PhaseError(f"device_trace wrote {files}")
+    with open(os.path.join(tdir, files[0])) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"device_trace around one replayed step ({trace_s:.1f} s): {files[0]}, "
+        f"{len(events)} events, {kernels} kernel events")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"checkpoint_bytes": ckpt_bytes,
+            "save_s": save_s, "load_s": load_s, "step_ms": step_ms,
+            "proof_bytes": len(raw), "evm_bytes": len(evm), "roundtrip_s": rt_s,
+            "trace_events": len(events), "trace_kernel_events": kernels}
+
+
 def field_ubench(args, torch, dev) -> dict:
     """Phase 8: perf/ubench_field.py's benchmark on the card (its lines, the
     counts reset just before and read just after), then P1 and P2 against
@@ -2109,11 +2516,18 @@ def run(args) -> dict:
     kzg = kzg_path(args, torch, dev, workers)
     spark = ppsnark_path(args, torch, dev, workers, kzg)
     direct = direct_path(args, torch, dev)
+    sha = sha256_path(args, torch, dev, workers)
+    neutron = neutron_path(args, torch, dev)
+    as_bytes = bytes_path(args, torch, fold, comp, sha.pop("pp"))
     ubench = field_ubench(args, torch, dev)
-    log("compression: " + json.dumps(comp))
+    log("compression: " + json.dumps({k: v for k, v in comp.items()
+                                      if k not in ("snark", "vk")}))
     log("KZG path: " + json.dumps({k: v for k, v in kzg.items() if k not in ("pp", "ptau_dir")}))
     log("ppsnark path: " + json.dumps(spark))
     log("DirectSNARK: " + json.dumps(direct))
+    log("SHA-256 path: " + json.dumps(sha))
+    log("Neutron path: " + json.dumps(neutron))
+    log("bytes: " + json.dumps(as_bytes))
     log("field microbenchmark: " + json.dumps(ubench))
     if not args.rehearse:
         # the bucket stage's contract: no K3 per call on any path (K3 runs
@@ -2127,6 +2541,8 @@ def run(args) -> dict:
             per_call[f"replayed prove_step {i + 1}"] = sl
         for i, sl in enumerate(kzg["launches_per_replayed_step"]):
             per_call[f"replayed KZG prove_step {i + 1}"] = sl
+        for i, sl in enumerate(sha["launches_per_replayed_step"]):
+            per_call[f"replayed SHA-256 prove_step {i + 1}"] = sl
         k3 = {k: v["xyzz_double"] for k, v in per_call.items() if v["xyzz_double"]}
         if k3:
             raise PhaseError(f"K3 launched per call (0 expected on every path): {k3}")
@@ -2151,7 +2567,9 @@ def run(args) -> dict:
         if name == "stage":
             row = dict(fold["row"])
             row["max_abs_err"] = max(row["max_abs_err"], kzg["kernel_errs"]["stage"],
-                                     spark["kernel_errs"].get("stage", 0))
+                                     spark["kernel_errs"].get("stage", 0),
+                                     sha["kernel_errs"]["stage"],
+                                     neutron["kernel_errs"]["stage"])
         elif name in UBENCH_KERNELS:
             row = {k: ubench["rows"][name][k] for k in
                    ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2160,6 +2578,7 @@ def run(args) -> dict:
             ms, plain_ms, (b_ms, b_by) = timed[name]
             err = max(errs.get(name, 0), fold["kernel_errs"].get(name, 0),
                       kzg["kernel_errs"].get(name, 0), spark["kernel_errs"].get(name, 0),
+                      sha["kernel_errs"].get(name, 0),
                       comp["k1_err"] if name == "mont_mul" else 0,
                       comp["k5_err"] if name == "bucket_reduce" else 0)
             row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -2197,6 +2616,11 @@ def run(args) -> dict:
             "pp_path_launches": spark["launches"][name],
             "pp_compress_launches": spark["compress_launches"][name],
             "direct_launches": direct["launches"][name],
+            "sha256_path_launches": sha["launches"][name],
+            "sha256_replayed_step_launches": [sl[name] for sl in
+                                              sha["launches_per_replayed_step"]],
+            "neutron_path_launches": neutron["launches"][name],
+            "neutron_step_launches": [sl[name] for sl in neutron["launches_per_step"]],
             "precompute_launches": {
                 "commit_key": msm["precompute_launches"][name],
                 "witness_key": fold["witness_precompute_launches"][name],
@@ -2205,7 +2629,8 @@ def run(args) -> dict:
         if spark["timing"]:
             rows[-1]["precompute_launches"]["spark_key"] = (
                 spark["timing"]["precompute_launches"][name])
-        for key, src in (("kzg_shape_ms", kzg), ("pp_shape_ms", spark)):
+        for key, src in (("kzg_shape_ms", kzg), ("pp_shape_ms", spark),
+                         ("sha256_shape_ms", sha)):
             if name in src["shape_ms"]:
                 rows[-1][key] = src["shape_ms"][name]
     return {"smi": smi, "kernels": rows, "msm": msm}

@@ -21,6 +21,19 @@ LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
 
 
+@functools.lru_cache(maxsize=None)
+def _tonelli_shanks(p: int):
+    """(q, s, z^q) with p - 1 = q 2^s, q odd, z the least non-residue."""
+    q, s = p - 1, 0
+    while q % 2 == 0:
+        q //= 2
+        s += 1
+    z = 2
+    while pow(z, (p - 1) // 2, p) != p - 1:
+        z += 1
+    return q, s, pow(z, q, p)
+
+
 @dataclass(frozen=True)
 class FieldSpec:
     """A prime field F_p with helpers for both host and device engines."""
@@ -82,28 +95,30 @@ class FieldSpec:
         return pow(a, e, self.p)
 
     def sqrt(self, a: int):
-        """Tonelli-Shanks; returns a square root or None."""
+        """Tonelli-Shanks; returns a square root or None (the JAX package's
+        root: the same iteration from the same non-residue, whose power is
+        cached per field, and one exponentiation for a^((q+1)/2) and a^q;
+        a non-residue is found by the loop instead of Euler's criterion)."""
         p = self.p
         if a == 0:
             return 0
-        if pow(a, (p - 1) // 2, p) != 1:
+        if a % p == 0:
             return None
         if p % 4 == 3:
-            return pow(a, (p + 1) // 4, p)
-        # general Tonelli-Shanks
-        q, s = p - 1, 0
-        while q % 2 == 0:
-            q //= 2
-            s += 1
-        z = 2
-        while pow(z, (p - 1) // 2, p) != p - 1:
-            z += 1
-        m, c, t, r_ = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
+            r_ = pow(a, (p + 1) // 4, p)
+            return r_ if r_ * r_ % p == a % p else None
+        q, s, c = _tonelli_shanks(p)
+        w = pow(a, (q - 1) // 2, p)
+        r_ = a * w % p  # a^((q+1)/2)
+        t = r_ * w % p  # a^q
+        m = s
         while t != 1:
             i, t2 = 0, t
             while t2 != 1:
                 t2 = t2 * t2 % p
                 i += 1
+            if i == m:  # t has order 2^s: a is not a square
+                return None
             b = pow(c, 1 << (m - i - 1), p)
             m, c = i, b * b % p
             t = t * c % p

@@ -129,6 +129,19 @@ def public_params(engine1, engine2, F_arity: int, shape1: dict, rows1,
     )
 
 
+def neutron_public_params(engine1, engine2, F_arity: int, shape: dict, rows, device=None):
+    """The port's NeutronNova PublicParams from the JAX package's, through
+    its own constructor: `shape` is a dict of r1cs_shape's arguments for the
+    structure's (padded) shape, `rows` the key rows of commitment_key; the
+    key is put on `device`."""
+    from nova_tpu_torch.neutron import Structure
+    from nova_tpu_torch.neutron.ivc import PublicParams
+
+    S = r1cs_shape(engine1.scalar, shape["num_cons"], shape["num_vars"], shape["num_io"], shape)
+    ck = commitment_key(engine1.curve, rows, device)
+    return PublicParams(engine1, engine2, F_arity, ck, Structure(S))
+
+
 _SPARK_FIELDS = ("row", "col", "val_A", "val_B", "val_C", "ts_row", "ts_col")
 
 

@@ -1,4 +1,4 @@
-"""Wall-clock phase timers for the host path (copy of the phase part of
+"""Wall-clock phase timers for the host path, and a device trace (port of
 ``nova_tpu/profiling.py``).
 
 Usage:
@@ -15,6 +15,10 @@ Set NOVA_PROFILE=1 to make the built-in prover phase markers
 read it with ``profiling.global_report()`` or ``profiling._GLOBAL``. A
 phase times the host: device work that it queues and does not wait for is
 charged to the phase that waits for it.
+
+``device_trace(log_dir)`` records a region with ``torch.profiler`` (host
+activity, and the card's kernels when CUDA is available) and writes it to
+`log_dir` as a Chrome trace (open it in Perfetto or chrome://tracing).
 """
 
 from __future__ import annotations
@@ -86,3 +90,20 @@ def global_report() -> str:
 def global_reset() -> None:
     _GLOBAL.totals.clear()
     _GLOBAL.counts.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """torch.profiler trace around a region, written to
+    ``<log_dir>/trace_<pid>_<ns>.json`` when the region exits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

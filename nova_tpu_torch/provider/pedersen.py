@@ -15,7 +15,10 @@ the native host MSM when the native binding is available; an int list of
 at least DEVICE_THRESHOLD entries takes the int-scalar device MSM
 (``msm_device2``) on the key's device, one of 16 or more the native host
 MSM, a shorter one the host Pippenger; ``commit_small`` sends long lists
-to the device MSM with a bit bound.
+to the device MSM with a bit bound. The sparse and sub-range commits and
+the derived keys of NeutronNova and Spark take the native host MSM and
+segmented batch add where the binding is built, and the reference's host
+loops where it is not.
 """
 
 from __future__ import annotations
@@ -81,6 +84,9 @@ class CommitmentKey:
     device: object = None  # where device_bases2 marshals (CUDA if None)
     _db: object = field(default=None, repr=False, compare=False)
     _host: object = field(default=None, repr=False, compare=False)
+    # serde writes the JAX package's fields only: a key read back from bytes
+    # has the default device
+    _serde_local = ("device",)
 
     def __len__(self):
         return len(self.ck)
@@ -361,3 +367,94 @@ class CommitmentEngine:
             )
             return _with_blind(ck, acc, r)
         return CommitmentEngine.commit(ck, v, r)
+
+    @staticmethod
+    def batch_commit_small(ck: CommitmentKey, vs, rs) -> list:
+        assert len(vs) == len(rs)
+        return [CommitmentEngine.commit_small(ck, v, r) for v, r in zip(vs, rs)]
+
+    @staticmethod
+    def commit_small_range(
+        ck: CommitmentKey, v: Sequence[int], r: int, range_: range, max_num_bits: int
+    ) -> Commitment:
+        """Commit over a generator sub-range (pedersen.rs:285-315)."""
+        from nova_tpu_torch import native
+
+        bases = ck.ck[range_.start : range_.stop]
+        assert len(bases) >= len(v)
+        if not v:
+            acc = AffinePoint.identity(ck.curve)
+        elif native.available():
+            acc = native.msm_cached(
+                ck.curve, ck.host_arrays(range_.start + len(v)), list(v),
+                indices=list(range(range_.start, range_.start + len(v))),
+            )
+        else:
+            acc = host_msm(list(v), bases[: len(v)])
+        return _with_blind(ck, acc, r)
+
+    @staticmethod
+    def ck_derive_by_address(
+        ck: CommitmentKey, addresses: Sequence[int], table_size: int
+    ) -> CommitmentKey:
+        """Derived key: G'_j = sum_{i: addr[i]=j} G_i (pedersen.rs:360-381),
+        on the same device as `ck`."""
+        from nova_tpu_torch import native
+        from nova_tpu_torch.errors import InvalidCommitmentKeyLengthError, InvalidIndexError
+
+        if len(addresses) > len(ck.ck):
+            raise InvalidCommitmentKeyLengthError()
+        if any(j >= table_size for j in addresses):
+            raise InvalidIndexError()
+        if native.available() and addresses:
+            addr = np.asarray(addresses, dtype=np.uint32)
+            order = np.argsort(addr, kind="stable").astype(np.uint32)
+            counts = np.bincount(addr, minlength=table_size)
+            seg_off = np.concatenate(
+                [np.zeros(1, dtype=np.int64), np.cumsum(counts)]
+            ).astype(np.uint32)
+            acc = native.batch_add_seg(
+                ck.curve, ck.host_arrays(len(addresses)), order, seg_off
+            )
+        else:
+            acc = [AffinePoint.identity(ck.curve) for _ in range(table_size)]
+            for i, j in enumerate(addresses):
+                acc[j] = acc[j].add(ck.ck[i])
+        return CommitmentKey(ck.curve, acc, ck.h, ck.device)
+
+    @staticmethod
+    def commit_sparse(
+        ck: CommitmentKey, indices: Sequence[int], scalars: Sequence[int], r: int = 0
+    ) -> Commitment:
+        from nova_tpu_torch import native
+
+        assert len(indices) == len(scalars)
+        if not indices:
+            acc = AffinePoint.identity(ck.curve)
+        elif native.available():
+            acc = native.msm_cached(
+                ck.curve, ck.host_arrays(max(indices) + 1), list(scalars),
+                indices=list(indices),
+            )
+        else:
+            acc = host_msm(list(scalars), [ck.ck[i] for i in indices])
+        return _with_blind(ck, acc, r)
+
+    @staticmethod
+    def commit_sparse_binary(
+        ck: CommitmentKey, non_zero_indices: Sequence[int], r: int = 0
+    ) -> Commitment:
+        from nova_tpu_torch import native
+
+        if native.available() and non_zero_indices:
+            acc = native.batch_add_seg(
+                ck.curve,
+                ck.host_arrays(max(non_zero_indices) + 1),
+                list(non_zero_indices),
+                [0, len(non_zero_indices)],
+            )[0]
+        else:
+            acc = AffinePoint.identity(ck.curve)
+            for i in non_zero_indices:
+                acc = acc.add(ck.ck[i])
+        return _with_blind(ck, acc, r)

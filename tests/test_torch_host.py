@@ -65,9 +65,24 @@ def test_shake256_matches():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_from_label_matches(name):
-    tg = tped.from_label(tcurves.ALL_CURVES[name], b"port-test", 3)
-    jg = jped.from_label(jcurves.ALL_CURVES[name], b"port-test", 3)
+    tg = tped.from_label(tcurves.ALL_CURVES[name], b"port-test", 32)
+    jg = jped.from_label(jcurves.ALL_CURVES[name], b"port-test", 32)
     assert [_xy(p) for p in tg] == [_xy(p) for p in jg]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_sqrt_matches(name):
+    """The same root (or None) as the JAX package's Tonelli-Shanks, for
+    squares, non-squares, 0, 1 and -1 in both fields of each curve."""
+    tc, jc = tcurves.ALL_CURVES[name], jcurves.ALL_CURVES[name]
+    rng = np.random.default_rng(sum(name.encode()) + 1)
+    for tf, jf in ((tc.base, jc.base), (tc.scalar, jc.scalar)):
+        xs = [_rand_scalar(rng, tf.p) for _ in range(100)]
+        xs += [x * x % tf.p for x in xs[:50]] + [0, 1, tf.p - 1]
+        got = [tf.sqrt(x) for x in xs]
+        assert got == [jf.sqrt(x) for x in xs]
+        assert all(r is None or r * r % tf.p == x for r, x in zip(got, xs))
+        assert any(r is None for r in got)
 
 
 def test_from_label_process_pool_same_list():

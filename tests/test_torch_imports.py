@@ -48,8 +48,46 @@ def test_import_leaves_jax_and_nova_tpu_out():
         "import nova_tpu_torch.perf.thresholds\n"
         "import nova_tpu_torch.spartan.ppsnark, nova_tpu_torch.spartan.direct\n"
         "import nova_tpu_torch.provider.mercury\n"
+        "import nova_tpu_torch.traits, nova_tpu_torch.frontend.uint32\n"
+        "import nova_tpu_torch.frontend.sha256, nova_tpu_torch.neutron\n"
+        "import nova_tpu_torch.neutron.circuit, nova_tpu_torch.neutron.ivc\n"
+        "import nova_tpu_torch.serde, nova_tpu_torch.checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nova_tpu' or m.startswith('nova_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300,
+    )
+    assert out.returncode == 0 and "clean" in out.stdout, out.stdout
+
+
+def test_serde_resolves_no_nova_tpu_module():
+    """Bytes naming classes by the JAX package's paths (``nova_tpu.<module>``,
+    as both packages write them) load into the port's classes, and no jax
+    or nova_tpu module is imported while they do."""
+    code = (
+        "import sys\n"
+        "from nova_tpu_torch import serde\n"
+        "from nova_tpu_torch.curves.spec import pallas\n"
+        "from nova_tpu_torch.provider.pedersen import Commitment, CommitmentEngine\n"
+        "from nova_tpu_torch.r1cs import R1CSInstance, RelaxedR1CSInstance\n"
+        "from nova_tpu_torch.spartan.polys import UniPoly\n"
+        "from nova_tpu_torch.fields.spec import pallas_scalar\n"
+        "from nova_tpu_torch.curves.spec import AffinePoint\n"
+        "c = Commitment(AffinePoint.generator(pallas).mul(5))\n"
+        "objs = [RelaxedR1CSInstance(c, c, [1, 2], 3), R1CSInstance(c, [4, 5]),\n"
+        "        UniPoly(pallas_scalar, [1, 2, 3]), CommitmentEngine]\n"
+        "raw = serde.dumps(objs)\n"
+        "assert b'nova_tpu.r1cs:RelaxedR1CSInstance' in raw\n"
+        "assert b'nova_tpu_torch' not in raw\n"
+        "back = serde.loads(raw)\n"
+        "assert serde.dumps(back) == raw and back[3] is CommitmentEngine\n"
+        "assert type(back[0]) is RelaxedR1CSInstance and back[0] == objs[0]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'nova_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
