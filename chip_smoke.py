@@ -5,7 +5,8 @@ compression (CompressedSNARK), the same on BN254/Grumpkin with a
 powers-of-tau key and HyperKZG and Mercury compression, its compression
 with the preprocessing Spartan (ppsnark), DirectSNARK with ppsnark on
 Pallas, the SHA-256 step circuit's IVC, NeutronNova's IVC, checkpoints and
-proofs as bytes, and the field microbenchmark.
+proofs as bytes, the device mesh (sharded MSM, a meshed fold step and
+compression, the graft_entry twin), and the field microbenchmark.
 
     python3 chip_smoke.py                # 2^16 commit, 2^17 fold steps
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
@@ -150,13 +151,30 @@ result line):
    point fails to load, a dumps_evm round trip gives the same bytes and
    verifies; profiling.device_trace around one replayed step writes a
    trace file;
+15. the mesh (nova_tpu_torch.parallel on 4 x cuda:0: the split, the
+   per-shard kernels and the exact reductions, not scaling): msm_sharded
+   of phase 2's 2^16 scalars on phase 2's key, equal to msm_device3_mont
+   and the host MSM and timed beside it, with K4, K2s, K5 and K1 on one
+   shard's inputs and K2 on the 4-row reduction against their plain
+   versions (bitwise) and timed there; a prove_step of phase 5's
+   RecursiveSNARK under use_mesh against the same step without a mesh on a
+   checkpoint copy, same seeded randomness, twice (equal field by field;
+   the secondary's cross-term, both witnesses and the primary's cross-term
+   all through msm_sharded; no K3 in the replay); graft_entry's
+   dryrun_multichip(4) on the card, and a CompressedSNARK of its trivial
+   circuit with and without the mesh (equal proof_to_bytes); graft_entry's
+   entry() (msm1 over 256 points) against the host MSM, with every K1, K2
+   and K3 call it makes against its plain version (bitwise); the counts reset
+   just before each part and read just after; phase 7 also proves its
+   outer sumcheck on this mesh (the sharded route: one proof on three
+   routes);
 8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
    ITERS = 20) with the counts reset just before and read just after; P1
    and P2 (one kernel, two limb layouts) against their plain versions
    (bitwise) and timed beside their bound: one Montgomery product per
    column and step.
 
-Phases run in the order 1-7, 9-14, 8; each header line gives the
+Phases run in the order 1-7, 9-15, 8; each header line gives the
 seconds since the start. After them, launches are checked: K3
 (a key's window precompute only) must not launch in a commit, a replayed
 prove_step (either curve cycle, or the SHA-256 circuit's), an msm_device2
@@ -257,6 +275,11 @@ PATH_CHECKS = {"mont_mul", "xyzz_double", "bucket_reduce", "accum", "suffix_segm
                "xyzz_add/commit", "mont_mul/spmv"}
 # Montgomery products per active lane per round of a B6 stage
 STAGE_MULS = {"complete": 26, "fast": 14, "fast0": 6}
+# phase 15: the mesh's devices (cuda:0 repeated), the kernels a sharded MSM
+# and a meshed prove_step must launch, and those of the entry's msm1
+MESH_DEVICES = 4
+MESH_MSM_KERNELS = ("mont_mul", "xyzz_add", "accum", "suffix_segmented", "bucket_reduce")
+ENTRY_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double")
 
 
 class PhaseError(RuntimeError):
@@ -410,6 +433,28 @@ def largest_calls(targets: dict):
             setattr(mod, attr, real)
 
 
+@contextlib.contextmanager
+def every_call(targets: dict):
+    """While installed, keep a copy of the arguments of every call of each
+    function in `targets` ({name: (module, attribute)}); yields
+    {name: [args, ...]} in call order."""
+    seen, saved = {name: [] for name in targets}, []
+    for name, (mod, attr) in targets.items():
+        real = getattr(mod, attr)
+        saved.append((mod, attr, real))
+
+        def wrapper(*a, _name=name, _real=real):
+            seen[_name].append(_copy(a))
+            return _real(*a)
+
+        setattr(mod, attr, wrapper)
+    try:
+        yield seen
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+
+
 def kernel_vs_plain(torch, name: str, args) -> int:
     """Kernel `name` and its plain PyTorch version on captured arguments:
     the largest difference over limbs (and flags)."""
@@ -447,6 +492,38 @@ def kernel_vs_plain(torch, name: str, args) -> int:
         return max(max_abs_err(torch, got[0], ref[0]), max_abs_err(torch, got[1], ref[1]),
                    int((got[2] - ref[2]).abs().max().item()))
     raise ValueError(name)
+
+
+def calls_vs_plain(torch, name: str, calls) -> int:
+    """Kernel `name` (K1, K2 or K3) launched at each captured call's own
+    shapes against its plain version run once over every call's rows
+    stacked (per doubling count for K3; the plain versions are
+    row-wise): the largest difference over limbs."""
+    from nova_tpu_torch.fields import kernels as fk
+
+    if name == "mont_mul":
+        return max(kernel_vs_plain(torch, name, a) for a in calls)
+    tf = calls[0][0]
+    o = tf.ops(first_input(calls[0]).device)
+    groups = {}
+    for a in calls:
+        pts = [P for P in a[1:] if isinstance(P, dict)]
+        shape = torch.broadcast_shapes(*(P[k].shape for P in pts for k in fk.KEYS))
+        times = tuple(x for x in a[2:] if isinstance(x, int))
+        got = (fk.xyzz_add(tf, *pts) if name == "xyzz_add"
+               else fk.xyzz_double(tf, pts[0], *times))
+        flat = [{k: P[k].expand(shape).reshape(-1, 16) for k in fk.KEYS} for P in pts]
+        groups.setdefault(times, []).append(
+            (flat, {k: got[k].reshape(-1, 16) for k in fk.KEYS}))
+    err = 0
+    for times, rows in groups.items():
+        ins = [tuple(torch.cat([f[i][k] for f, _ in rows]).long() for k in fk.KEYS)
+               for i in range(len(rows[0][0]))]
+        ref = (fk.xyzz_add_limbs(o, *ins) if name == "xyzz_add"
+               else fk.xyzz_double_limbs(o, ins[0], *times))
+        got = {k: torch.cat([g[k] for _, g in rows]) for k in fk.KEYS}
+        err = max(err, max_abs_err(torch, got, dict(zip(fk.KEYS, ref))))
+    return err
 
 
 def first_input(args):
@@ -1032,36 +1109,52 @@ def outer_sumchecks(torch):
         SumcheckProof.prove_cubic_with_three_inputs = staticmethod(real_host)
 
 
-def other_route(torch, dev, o: dict) -> float:
+def other_route(torch, dev, o: dict, mesh=None) -> float:
     """The outer sumcheck recorded by outer_sumchecks again, on the same
     tables and a copy of its transcript, through the other route (on the
     card: the host native loop; in a rehearsal, which proves on the host,
-    the device route); fails unless both give the same proof byte for byte.
-    Returns the other route's wall ms."""
+    the device route) and, with a `mesh`, through the sharded prover on it;
+    fails unless every route gives the same proof byte for byte. Returns
+    the other route's wall ms, or {"other_ms", "sharded_ms"} with a mesh."""
+    import copy
+
     from nova_tpu_torch.ops import sumcheck as dsc
+    from nova_tpu_torch.parallel import prove_cubic_with_three_inputs_sharded
     from nova_tpu_torch.spartan.polys import MultilinearPolynomial as ML
     from nova_tpu_torch.spartan.sumcheck import SumcheckProof
 
-    field, tables = o["field"], o["tables"]
-    t0 = time.perf_counter()
-    if o["route"] == "device":
-        other = SumcheckProof.prove_cubic_with_three_inputs(
-            field, o["claim"], o["taus"], *(ML(field, t) for t in tables), o["transcript"])
-    else:
-        other = dsc.prove_cubic_with_three_inputs_device(
-            field, o["claim"], o["taus"], *tables, o["transcript"], device=dev)
-    sync(torch)
-    other_ms = (time.perf_counter() - t0) * 1e3
+    field, tables, tr = o["field"], o["tables"], o["transcript"]
+
+    def fresh():
+        return copy.deepcopy(tr, {id(tr.scalar_field): tr.scalar_field})
 
     def proof(res):
         return [cp.coeffs_except_linear_term for cp in res[0].compressed_polys], res[1], res[2]
 
-    if proof(o["result"]) != proof(other):
-        raise PhaseError(f"outer sumcheck: the {o['route']} proof differs from the other route's")
+    routes = {"other": lambda: (
+        SumcheckProof.prove_cubic_with_three_inputs(
+            field, o["claim"], o["taus"], *(ML(field, t) for t in tables), fresh())
+        if o["route"] == "device" else dsc.prove_cubic_with_three_inputs_device(
+            field, o["claim"], o["taus"], *tables, fresh(), device=dev))}
+    if mesh is not None:
+        routes["sharded"] = lambda: prove_cubic_with_three_inputs_sharded(
+            field, o["claim"], o["taus"], *tables, fresh(), mesh)
+    ms = {}
+    for name, run in routes.items():
+        t0 = time.perf_counter()
+        res = run()
+        sync(torch)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        if proof(res) != proof(o["result"]):
+            raise PhaseError(f"outer sumcheck: the {name} route's proof differs from the "
+                             f"{o['route']} route's")
     log(f"outer sumcheck ({o['rounds']} rounds): {o['route']} on the main path "
-        f"{o['ms']:.1f} ms; the other route gives the same proof byte for byte "
-        f"({other_ms:.1f} ms)")
-    return other_ms
+        f"{o['ms']:.1f} ms; " + "; ".join(
+            f"the {name} route{f' on {mesh.size} devices' if name == 'sharded' else ''} "
+            f"gives the same proof byte for byte ({t:.1f} ms)" for name, t in ms.items()))
+    if mesh is None:
+        return ms["other"]
+    return {"other_ms": ms["other"], "sharded_ms": ms["sharded"]}
 
 
 def compress(args, torch, dev, pp, rs) -> dict:
@@ -1069,7 +1162,7 @@ def compress(args, torch, dev, pp, rs) -> dict:
     RecursiveSNARK (counts reset just before setup, read just after
     verify), then its checks: a tampered proof fails, the outer sumcheck
     again on the same tables through the other route (the host native loop
-    on the card), K1 in the device outer sumcheck's first round against its
+    on the card) and the sharded route on phase 15's mesh, K1 in the device outer sumcheck's first round against its
     plain version, and the randomizer's W commit against the native host
     MSM."""
     from nova_tpu_torch import _build, native, profiling
@@ -1152,7 +1245,7 @@ def compress(args, torch, dev, pp, rs) -> dict:
         # route (in a rehearsal the device route, whose first round K1 is
         # recorded here)
         o = outer
-        other_ms = other_route(torch, dev, o)
+        routes = other_route(torch, dev, o, mesh=mesh_of(dev))
     finally:
         dsc.DeviceSumcheck.cubic_eq_round = real_round
         del S.sample_random_instance_witness
@@ -1186,7 +1279,8 @@ def compress(args, torch, dev, pp, rs) -> dict:
             "snark": snark, "vk": vk, "steps": rs.i,
             "k1_rows": k1_rows, "k5_err": k5_err, "outer_route": o["route"],
             "outer_rounds": o["rounds"],
-            "outer_ms": o["ms"], "other_route_ms": other_ms}
+            "outer_ms": o["ms"], "other_route_ms": routes["other_ms"],
+            "sharded_route_ms": routes["sharded_ms"]}
 
 
 def kernel_call(name: str, args):
@@ -2090,6 +2184,285 @@ def bytes_path(args, torch, fold: dict, comp: dict, other_pp) -> dict:
             "trace_events": len(events), "trace_kernel_events": kernels}
 
 
+def mesh_of(dev):
+    """Phase 15's mesh: MESH_DEVICES entries of the card (cuda:0), or of the
+    CPU in a rehearsal."""
+    from nova_tpu_torch.parallel import make_mesh
+
+    return make_mesh(MESH_DEVICES,
+                     devices=["cuda:0" if dev.type == "cuda" else "cpu"] * MESH_DEVICES)
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Median wall ms of fn() up to a synchronise, after one warm-up."""
+    fn()
+    sync(torch)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def mesh_path(args, torch, dev, ck, v, host_point, fold) -> dict:
+    """Phase 15: the mesh (MESH_DEVICES x cuda:0). (1) msm_sharded of phase
+    2's FVec on phase 2's key, equal to msm_device3_mont and the host MSM,
+    timed beside it, with K4, K2s, K5 and K1 on one shard's inputs and K2 on
+    the D-row reduction against their plain versions (bitwise) and timed
+    there; (2) one prove_step of phase 5's RecursiveSNARK under use_mesh
+    against the same step without a mesh on a copy loaded from its
+    checkpoint, with the same seeded randomness, twice (the copy's first
+    step builds its tape again; the second steps are the replays timed by
+    phase): equal field by field, every commit sharded (counted), the meshed
+    object verifies; (3)
+    graft_entry.dryrun_multichip on the mesh's devices, then a
+    CompressedSNARK of its trivial circuit proved with and without the mesh
+    from one seeded stream: equal proof_to_bytes, and it verifies; (4)
+    graft_entry.entry(): fn(*args) equals the host MSM, and every K1, K2 and
+    K3 call it makes equals its plain version (bitwise). The counts are reset
+    just before each part and read just after it."""
+    import contextlib
+    import random
+    import secrets
+    import shutil
+
+    from nova_tpu_torch import _build, checkpoint, graft_entry, native, parallel, profiling
+    from nova_tpu_torch.curves.spec import pallas
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.curves.msm_host import msm as host_msm
+    from nova_tpu_torch.ops import msm, msm3
+
+    reps = 1 if args.rehearse else 3
+    mesh = mesh_of(dev)
+    D = mesh.size
+    log(f"== phase 15: the mesh ({D} x {mesh.devices[0]})")
+    out = {"devices": [str(d) for d in mesh.devices], "launches": {}, "wall_ms": {}}
+    t15 = time.perf_counter()
+
+    # -- (1) the sharded MSM of phase 2's scalars on phase 2's key ---------
+    t0 = time.perf_counter()
+    db = ck.device_bases2(len(v))
+    _build.reset_launches()
+    got = parallel.msm_sharded(v, mesh=mesh, device_bases=db)
+    sync(torch)
+    out["launches"]["sharded_msm"] = dict(_build.LAUNCHES)
+    single = msm3.msm_device3_mont(v.m, db)
+    if got != host_point or single != host_point:
+        raise PhaseError(f"msm_sharded {got} / msm_device3_mont {single} != host {host_point}")
+    window = 16 if dev.type == "cuda" else 8
+    msm_t = {"n": len(v), "window": window,
+             "sharded_ms": wall_ms(torch, lambda: parallel.msm_sharded(
+                 v, mesh=mesh, device_bases=db), reps),
+             "msm_device3_mont_ms": wall_ms(torch, lambda: msm3.msm_device3_mont(v.m, db), reps)}
+    log(f"msm_sharded == msm_device3_mont == host msm; launches "
+        f"{out['launches']['sharded_msm']}; {json.dumps(msm_t)}")
+    if not args.rehearse:
+        missing = [k for k in MESH_MSM_KERNELS if out["launches"]["sharded_msm"][k] == 0]
+        if missing:
+            raise PhaseError(f"kernels not launched by the sharded MSM: {missing}")
+    # each kernel of a shard against its plain version (the last shard's
+    # inputs: the shards are equal in size), and K2 on the D-row reduction
+    with largest_calls({"accum": (msm3, "accum"), "suffix_segmented": (msm3, "suffix_to_buckets"),
+                        "bucket_reduce": (msm3, "_bucket_reduce"), "mont_mul": (fk, "mont_mul"),
+                        "reduce": (parallel, "_tree_reduce_points")}) as seen:
+        parallel.msm_sharded(v, mesh=mesh, device_bases=db)
+    errs = {k: kernel_vs_plain(torch, k, seen[k])
+            for k in ("accum", "suffix_segmented", "bucket_reduce", "mont_mul")}
+    bf, gathered = seen["reduce"]
+    reduced = parallel._tree_reduce_points(bf, gathered)
+    plain = parallel._tree_reduce_points(bf, {k: t.cpu() for k, t in gathered.items()})
+    errs["xyzz_add"] = max_abs_err(torch, {k: t.cpu() for k, t in reduced.items()}, plain)
+    log(f"one shard's kernels and the {D}-row reduction against their plain versions "
+        f"(max |kernel - plain|): {errs}")
+    if any(errs.values()):
+        raise PhaseError(f"kernels disagree with their plain versions on the mesh: {errs}")
+    a4 = seen["accum"]
+    tails = msm3.accum(*a4)[0]
+    k1 = seen["mont_mul"]
+    k1_rows = torch.broadcast_shapes(k1[1].shape, k1[2].shape).numel() // 16
+    # each operand read once at its own shape (the from_mont's one-row
+    # constant once), each product row written once
+    k1_bytes = sum(t.numel() * t.element_size() for t in k1[1:]) + ROW * k1_rows
+    shapes = {
+        "accum": (kernel_call("accum", a4), accum_bound(a4[2], *a4[1], tails),
+                  f"{a4[1][0]} x {a4[1][1]} grid"),
+        "suffix_segmented": (kernel_call("suffix_segmented", seen["suffix_segmented"]),
+                             suffix_bound(torch, seen["suffix_segmented"][1],
+                                          seen["suffix_segmented"][3]),
+                             f"{seen['suffix_segmented'][1].shape[0]} carries"),
+        "bucket_reduce": (kernel_call("bucket_reduce", seen["bucket_reduce"]),
+                          bucket_reduce_bound(seen["bucket_reduce"][1]["x"].shape[0]),
+                          f"{seen['bucket_reduce'][1]['x'].shape[0]} buckets"),
+        "mont_mul": (kernel_call("mont_mul", k1), bound(k1_bytes, MUL_OPS * k1_rows),
+                     f"{k1_rows} rows"),
+        "xyzz_add": (lambda: parallel._tree_reduce_points(bf, gathered),
+                     bound(12 * ROW * (D - 1), MUL_OPS * 14 * (D - 1)),
+                     f"{D}-row reduction ({D - 1} one-row adds)"),
+    }
+    out["shape_ms"] = {}
+    for name, (fn, (b_ms, b_by), what) in shapes.items():
+        out["shape_ms"][name] = {"shape": what, "ms": cuda_ms(torch, fn, reps),
+                                 "bound_ms": b_ms, "bound_by": b_by}
+    out["kernel_errs"], out["msm"] = errs, msm_t
+    log("kernels at the mesh's shapes (ms): " + json.dumps(out["shape_ms"]))
+    out["wall_ms"]["sharded_msm"] = (time.perf_counter() - t0) * 1e3
+
+    # -- (2) one prove_step of phase 5's RecursiveSNARK under the mesh -----
+    t0 = time.perf_counter()
+    pp, rs, circuit = fold["pp"], fold["rs"], fold["circuit"]
+    d = os.path.join(native.BUILD_ROOT, "mesh")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    path = os.path.join(d, "ivc.ckpt")
+    checkpoint.save_recursive_snark(path, pp, rs)
+    # the unbroken object steps under the mesh (its tape replays at once);
+    # the copy builds its tape again in its first step
+    copies = {"unmeshed": checkpoint.load_recursive_snark(path, pp), "meshed": rs}
+    shutil.rmtree(d, ignore_errors=True)
+    commits, real_shard = [], parallel.msm_sharded
+
+    def counted(s, *a, **k):
+        commits.append((type(s).__name__, len(s)))
+        return real_shard(s, *a, **k)
+
+    steps = {label: {"ms": [], "launches": None, "phase_ms": None} for label in copies}
+    real_rand = secrets.randbelow
+    os.environ["NOVA_PROFILE"] = "1"
+    parallel.msm_sharded = counted
+    try:
+        for k in range(2):  # the copy's first step builds its tape, its second replays it
+            for label, obj in copies.items():
+                rnd = random.Random(SEED + 15 + k)
+                secrets.randbelow = lambda n, _r=rnd: _r.randrange(n)
+                commits.clear()
+                profiling.global_reset()
+                _build.reset_launches()
+                t1 = time.perf_counter()
+                with (parallel.use_mesh(mesh) if label == "meshed"
+                      else contextlib.nullcontext()):
+                    obj.prove_step(pp, circuit)
+                sync(torch)
+                steps[label]["ms"].append((time.perf_counter() - t1) * 1e3)
+                steps[label]["launches"] = dict(_build.LAUNCHES)
+                steps[label]["phase_ms"] = {
+                    n: t * 1e3 for n, t in profiling._GLOBAL.totals.items()}
+                if label == "meshed":
+                    steps[label]["commits"] = list(commits)
+            if _ivc_state(copies["meshed"]) != _ivc_state(copies["unmeshed"]):
+                raise PhaseError(f"the meshed prove_step {k + 1} differs from the unmeshed one")
+    finally:
+        parallel.msm_sharded = real_shard
+        secrets.randbelow = real_rand
+        del os.environ["NOVA_PROFILE"]
+    meshed = copies["meshed"]
+    p = pallas.scalar.p
+    want = [pow(2, pow(2, fold["squares"] * meshed.i, p - 1), p)]
+    if meshed.verify(pp, meshed.i, [2]) != want:
+        raise PhaseError("the meshed RecursiveSNARK does not verify")
+    # the secondary's cross-term, the primary's witness and cross-term, the
+    # secondary's witness
+    (c1, c2), (v1, v2) = pp.num_constraints(), pp.num_variables()
+    if [n for _, n in steps["meshed"]["commits"]] != [c2, v1, c1, v2]:
+        raise PhaseError(f"the meshed step's commits were not all sharded: "
+                         f"{steps['meshed']['commits']}")
+    out["launches"]["meshed_step"] = steps["meshed"]["launches"]
+    out["step"] = steps
+    log("prove_step under the mesh == without (twice, field by field), verifies; commits "
+        f"through msm_sharded {steps['meshed']['commits']}; " + json.dumps(
+            {k: {"ms": v["ms"], "phase_ms": v["phase_ms"], "launches": v["launches"]}
+             for k, v in steps.items()}))
+    if not args.rehearse:
+        if steps["meshed"]["launches"]["xyzz_double"]:
+            raise PhaseError("K3 launched in a replayed meshed prove_step")
+        missing = [k for k in MESH_MSM_KERNELS if steps["meshed"]["launches"][k] == 0]
+        if missing:
+            raise PhaseError(f"kernels not launched by the meshed prove_step: {missing}")
+    out["wall_ms"]["meshed_step"] = (time.perf_counter() - t0) * 1e3
+
+    # -- (3) the dryrun twin, and its trivial circuit compressed -----------
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    dry = graft_entry.dryrun_multichip(D, devices=[str(x) for x in mesh.devices])
+    sync(torch)
+    out["launches"]["dryrun"] = dict(_build.LAUNCHES)
+    out["wall_ms"]["dryrun"] = (time.perf_counter() - t0) * 1e3
+    log(f"dryrun_multichip({D}): checks (a)-(d) and the fold drill passed "
+        f"({out['wall_ms']['dryrun']:.0f} ms); launches {out['launches']['dryrun']}")
+    t0 = time.perf_counter()
+    tpp, trs = dry["pp"], dry["rs"]
+    pk, vk = CompressedSNARK.setup(tpp)
+    raw, prove_ms = {}, {}
+    try:
+        for label in ("unmeshed", "meshed"):
+            rnd = random.Random(SEED + 151)
+            secrets.randbelow = lambda n, _r=rnd: _r.randrange(n)
+            _build.reset_launches()
+            t1 = time.perf_counter()
+            with (parallel.use_mesh(dry["mesh"]) if label == "meshed"
+                  else contextlib.nullcontext()):
+                proof = CompressedSNARK.prove(tpp, pk, trs)
+            sync(torch)
+            prove_ms[label] = (time.perf_counter() - t1) * 1e3
+            out["launches"][f"{label}_compression"] = dict(_build.LAUNCHES)
+            raw[label] = checkpoint.proof_to_bytes(proof)
+    finally:
+        secrets.randbelow = real_rand
+    if raw["meshed"] != raw["unmeshed"]:
+        raise PhaseError("the meshed CompressedSNARK's bytes differ from the unmeshed one's")
+    if proof.verify(vk, trs.i, [0]) != [0]:
+        raise PhaseError("the meshed CompressedSNARK does not verify")
+    out["compression"] = {"proof_bytes": len(raw["meshed"]), "prove_ms": prove_ms}
+    out["wall_ms"]["dryrun_compression"] = (time.perf_counter() - t0) * 1e3
+    log(f"CompressedSNARK of the dryrun's circuit: {len(raw['meshed'])} B, equal with and "
+        f"without the mesh, verifies; prove ms {json.dumps(prove_ms)}")
+
+    # -- (4) graft_entry.entry()'s forward step ------------------------------
+    t0 = time.perf_counter()
+    fn, fargs = graft_entry.entry(device=dev)
+    _build.reset_launches()
+    x, y, zz, zzz = fn(*fargs)
+    sync(torch)
+    out["launches"]["entry"] = dict(_build.LAUNCHES)
+    f = pallas.base
+    got = (f.mul(msm._limbs16_to_int(x), f.inv(msm._limbs16_to_int(zz))),
+           f.mul(msm._limbs16_to_int(y), f.inv(msm._limbs16_to_int(zzz))))
+    scalars, bases = graft_entry.entry_inputs()
+    want = host_msm(scalars, bases)
+    if got != (want.x, want.y):
+        raise PhaseError("graft_entry.entry()'s forward step != the host MSM")
+    # every K1, K2 and K3 call of the entry (K2 over the W x chunk combine
+    # lanes, the table merge and the suffix scans, (1, 16) in the Horner
+    # finish; K3 at times = c on one row) against its plain version, the
+    # plain one over all calls' rows at once
+    with every_call({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
+                     "xyzz_double": (fk, "xyzz_double")}) as calls:
+        fn(*fargs)
+    entry_errs, entry_shapes = {}, {}
+    for name, cs in calls.items():
+        entry_errs[name] = calls_vs_plain(torch, name, cs)
+        entry_shapes[name] = sorted({(tuple(first_input(a).shape),)
+                                     + tuple(x for x in a[2:] if isinstance(x, int))
+                                     for a in cs})
+        errs[name] = max(errs.get(name, 0), entry_errs[name])
+    log(f"entry()'s kernel calls against their plain versions (max |kernel - plain| over "
+        f"{ {k: len(v) for k, v in calls.items()} } calls at {entry_shapes}): {entry_errs}")
+    if any(entry_errs.values()):
+        raise PhaseError(f"entry()'s kernels disagree with their plain versions: {entry_errs}")
+    out["entry_ms"] = wall_ms(torch, lambda: fn(*fargs), reps)
+    out["wall_ms"]["entry"] = (time.perf_counter() - t0) * 1e3
+    log(f"entry(): msm1 over {len(scalars)} points == host msm; {out['entry_ms']:.1f} ms; "
+        f"launches {out['launches']['entry']}")
+    if not args.rehearse and any(out["launches"]["entry"][k] == 0 for k in ENTRY_KERNELS):
+        raise PhaseError(f"entry() did not launch {ENTRY_KERNELS}: {out['launches']['entry']}")
+    out["wall_ms"]["phase"] = (time.perf_counter() - t15) * 1e3
+    log(f"phase 15 parts (wall ms): {json.dumps(out['wall_ms'])}; card: "
+        f"{smi_line() if not args.rehearse else 'rehearsal on the CPU'}")
+    return out
+
+
 def field_ubench(args, torch, dev) -> dict:
     """Phase 8: perf/ubench_field.py's benchmark on the card (its lines, the
     counts reset just before and read just after), then P1 and P2 against
@@ -2519,6 +2892,7 @@ def run(args) -> dict:
     sha = sha256_path(args, torch, dev, workers)
     neutron = neutron_path(args, torch, dev)
     as_bytes = bytes_path(args, torch, fold, comp, sha.pop("pp"))
+    mesh = mesh_path(args, torch, dev, ck, v, com.point, fold)
     ubench = field_ubench(args, torch, dev)
     log("compression: " + json.dumps({k: v for k, v in comp.items()
                                       if k not in ("snark", "vk")}))
@@ -2528,6 +2902,7 @@ def run(args) -> dict:
     log("SHA-256 path: " + json.dumps(sha))
     log("Neutron path: " + json.dumps(neutron))
     log("bytes: " + json.dumps(as_bytes))
+    log("mesh: " + json.dumps({k: v for k, v in mesh.items() if k != "step"}))
     log("field microbenchmark: " + json.dumps(ubench))
     if not args.rehearse:
         # the bucket stage's contract: no K3 per call on any path (K3 runs
@@ -2543,6 +2918,8 @@ def run(args) -> dict:
             per_call[f"replayed KZG prove_step {i + 1}"] = sl
         for i, sl in enumerate(sha["launches_per_replayed_step"]):
             per_call[f"replayed SHA-256 prove_step {i + 1}"] = sl
+        per_call["sharded MSM"] = mesh["launches"]["sharded_msm"]
+        per_call["replayed meshed prove_step"] = mesh["launches"]["meshed_step"]
         k3 = {k: v["xyzz_double"] for k, v in per_call.items() if v["xyzz_double"]}
         if k3:
             raise PhaseError(f"K3 launched per call (0 expected on every path): {k3}")
@@ -2578,7 +2955,7 @@ def run(args) -> dict:
             ms, plain_ms, (b_ms, b_by) = timed[name]
             err = max(errs.get(name, 0), fold["kernel_errs"].get(name, 0),
                       kzg["kernel_errs"].get(name, 0), spark["kernel_errs"].get(name, 0),
-                      sha["kernel_errs"].get(name, 0),
+                      sha["kernel_errs"].get(name, 0), mesh["kernel_errs"].get(name, 0),
                       comp["k1_err"] if name == "mont_mul" else 0,
                       comp["k5_err"] if name == "bucket_reduce" else 0)
             row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -2621,6 +2998,8 @@ def run(args) -> dict:
                                               sha["launches_per_replayed_step"]],
             "neutron_path_launches": neutron["launches"][name],
             "neutron_step_launches": [sl[name] for sl in neutron["launches_per_step"]],
+            "mesh_launches": {part: ls[name] for part, ls in mesh["launches"].items()},
+            "mesh_shape_ms": mesh["shape_ms"].get(name),
             "precompute_launches": {
                 "commit_key": msm["precompute_launches"][name],
                 "witness_key": fold["witness_precompute_launches"][name],

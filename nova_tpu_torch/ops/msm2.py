@@ -197,6 +197,8 @@ class DeviceBases2:
             )
             self.n = len(points)
         self._fixed = {}  # (c, n_pad) -> (fx, fy, fyneg, finf)
+        # (c, n_pad, mesh devices) -> each shard's block of _fixed (parallel)
+        self._shards = {}
 
     @classmethod
     def from_tensors(cls, curve, x, y, inf) -> "DeviceBases2":
@@ -220,6 +222,8 @@ class DeviceBases2:
     def set_fixed(self, c: int, n_pad: int, fx, fy, finf) -> None:
         """Install a precompute computed elsewhere (see interop)."""
         self._fixed[(c, n_pad)] = (fx, fy, _negate_y(self.tf, fy), finf)
+        for k in [k for k in self._shards if k[:2] == (c, n_pad)]:
+            del self._shards[k]
 
 
 def _sized(device_bases: DeviceBases2, n_pad: int):

@@ -545,12 +545,19 @@ def _msm3_dispatch(bf: TField, sorted_d, st, c: int):
     return (bf, sorted_d, st, c, out, flag)
 
 
-def _msm3_finish(bf: TField, sorted_d, st, c: int, mode: str):
+def _msm3_sum(bf: TField, sorted_d, st, c: int, mode: str):
+    """Accumulate (K4), bucket totals (K2s, K2) and the weighted reduction
+    (K5) of a sorted sequence: the MSM as (1, 16) Montgomery XYZZ rows, and
+    K4's per-column degenerate-add flags."""
     nb = 1 << (c - 1)
     tail1, colend, flag = accum(bf, st["grid"], sorted_d, st["pts"], mode, nb,
                                 st["src"], st["signs"])
     totals = _bucket_totals(bf, sorted_d, tail1, colend, st["grid"], nb)
-    s = _bucket_reduce(bf, totals)
+    return _bucket_reduce(bf, totals), flag
+
+
+def _msm3_finish(bf: TField, sorted_d, st, c: int, mode: str):
+    s, flag = _msm3_sum(bf, sorted_d, st, c, mode)
     return {k: bf.from_mont(v) for k, v in s.items()}, flag.any()
 
 

@@ -52,6 +52,29 @@ def _std_limbs16(values) -> np.ndarray:
     return np.frombuffer(buf, dtype="<u2").reshape(n, NUM_LIMBS).astype(np.int32)
 
 
+def cubic_round_sums(tf: TField, T):
+    """The three interpolation sums (P(0), leading coeff, P(-1)) of
+    sum eq * (A*B - C) over the halves of the stacked (4, N, 16) Montgomery
+    tables [eq, A, B, C], as (3, 16) Montgomery rows."""
+    half = T.shape[1] // 2
+    lo, hi = T[:, :half], T[:, half:]
+    d = tf.sub(hi, lo)   # de, da, db, dc
+    m = tf.sub(lo, d)    # the tables at -1: elo - de, alo - da, ...
+    ab = tf.mont_mul(torch.stack([lo[1], d[1], m[1]]), torch.stack([lo[2], d[2], m[2]]))
+    ab_c = tf.sub(torch.stack([ab[0], ab[2]]), torch.stack([lo[3], m[3]]))
+    inner = torch.stack([ab_c[0], ab[1], ab_c[1]])
+    terms = tf.mont_mul(torch.stack([lo[0], d[0], m[0]]), inner)
+    return _field_tree_sum(tf, terms)
+
+
+def bind_top(tf: TField, r: int, T):
+    """Bind the top variable of stacked (k, N, 16) Montgomery tables:
+    lo + r*(hi - lo), (k, N/2, 16)."""
+    half = T.shape[1] // 2
+    lo, hi = T[:, :half], T[:, half:]
+    return tf.add(lo, tf.mont_mul(tf.const_mont(r % tf.spec.p, lo), tf.sub(hi, lo)))
+
+
 class DevicePoly:
     """A multilinear evaluation table resident on a device (Montgomery)."""
 
@@ -84,26 +107,14 @@ class DeviceSumcheck:
 
     def cubic_eq_round(self, eq: DevicePoly, A: DevicePoly, B: DevicePoly, C: DevicePoly):
         """(P(0), leading coeff, P(-1)) of sum eq * (A*B - C)."""
-        tf = self.tf
         T = torch.stack([eq.Z, A.Z, B.Z, C.Z])
-        half = T.shape[1] // 2
-        lo, hi = T[:, :half], T[:, half:]
-        d = tf.sub(hi, lo)   # de, da, db, dc
-        m = tf.sub(lo, d)    # the tables at -1: elo - de, alo - da, ...
-        ab = tf.mont_mul(torch.stack([lo[1], d[1], m[1]]), torch.stack([lo[2], d[2], m[2]]))
-        ab_c = tf.sub(torch.stack([ab[0], ab[2]]), torch.stack([lo[3], m[3]]))
-        inner = torch.stack([ab_c[0], ab[1], ab_c[1]])
-        terms = tf.mont_mul(torch.stack([lo[0], d[0], m[0]]), inner)
-        e0, c3, em1 = self._out(_field_tree_sum(tf, terms))
+        e0, c3, em1 = self._out(cubic_round_sums(self.tf, T))
         return e0, c3, em1
 
     def bind(self, r: int, polys: List[DevicePoly]):
         """Bind the top variable of every table: Z' = lo + r*(hi - lo)."""
-        tf = self.tf
-        T = torch.stack([pl.Z for pl in polys])
-        half = T.shape[1] // 2
-        lo, hi = T[:, :half], T[:, half:]
-        out = tf.add(lo, tf.mont_mul(tf.const_mont(r % self.field.p, lo), tf.sub(hi, lo)))
+        out = bind_top(self.tf, r, torch.stack([pl.Z for pl in polys]))
+        half = out.shape[1]
         for pl, z in zip(polys, out):
             pl.Z = z
             pl.n = half

@@ -3,9 +3,18 @@ reference: src/provider/pedersen.rs).
 
 commit(v, r) = sum_i v_i * G_i + r * H over hashed-to-curve generators.
 Generators derive from a label via a Shake256 XOF, one 32-byte block per
-generator, lifted to the curve with the halo2curves hash_to_curve map.
-Keys are cached on disk in the port's own cache directory, in the same
-``.npy`` row format as the JAX package.
+generator, lifted to the curve with the halo2curves hash_to_curve map; with
+``NOVA_LEGACY_MAP=1`` the earlier try-and-increment map is used instead, so
+keys cached under it stay loadable. Keys are cached on disk in the port's
+own cache directory, in the same ``.npy`` row format and under the same
+names as the JAX package (``ck2_`` for the hash-to-curve map, ``ck_`` for
+the legacy one).
+
+Under an active device mesh (``nova_tpu_torch.parallel.use_mesh``) a commit
+of at least 8 entries takes the sharded MSM (``msm_sharded``) before any
+other route, and ``batch_commit``/``commit_small`` skip their batched and
+device routes, as in the JAX package; ``commit_limbs`` (the host-native
+cross-terms) takes it too, so every commit of a meshed step is sharded.
 
 Routing: an ``FVec`` takes the fixed-base device MSM (``msm_device3_mont``)
 on the device it lives on, whatever its length (the JAX package brings one
@@ -54,14 +63,40 @@ def _h2c_blocks(args):
     return out
 
 
+def map_to_curve_legacy(curve: CurveSpec, uniform_bytes: bytes) -> AffinePoint:
+    """The try-and-increment map used behind NOVA_LEGACY_MAP=1: read 32
+    bytes as a little-endian integer u; take x = (u mod p) + ctr for the
+    smallest ctr >= 0 making x^3 + b a square; pick the root whose parity
+    equals bit 255 of u."""
+    f = curve.base
+    u = int.from_bytes(uniform_bytes, "little")
+    parity = (u >> 255) & 1
+    x = u % f.p
+    while True:
+        y = f.sqrt(f.add(f.mul(f.mul(x, x), x), curve.b % f.p))
+        if y is not None:
+            if y & 1 != parity:
+                y = f.p - y
+            return AffinePoint(curve, x, y)
+        x = f.add(x, 1)
+
+
+def _use_legacy_map() -> bool:
+    return os.environ.get("NOVA_LEGACY_MAP") == "1"
+
+
 def from_label(curve: CurveSpec, label: bytes, n: int,
                workers: int = 1) -> List[AffinePoint]:
     """Derive n generators from a label (DlogGroup::from_label semantics,
     src/provider/traits.rs:249-293): Shake256(label) XOF -> 32-byte blocks
-    -> hash_to_curve("from_uniform_bytes"). With `workers` > 1 the blocks
-    are hashed in a process pool; the list is the same."""
+    -> hash_to_curve("from_uniform_bytes"), or map_to_curve_legacy under
+    NOVA_LEGACY_MAP=1 (a serial loop: `workers` is not used). With
+    `workers` > 1 the blocks are hashed in a process pool; the list is the
+    same."""
     reader = Shake256().update(label).finalize_xof()
     blocks = [reader.read(32) for _ in range(n)]
+    if _use_legacy_map():
+        return [map_to_curve_legacy(curve, blk) for blk in blocks]
     if workers <= 1 or n < 2 * workers:
         triples = _h2c_blocks((curve.name, blocks))
     else:
@@ -256,9 +291,11 @@ class CommitmentEngine:
               workers: int = None) -> CommitmentKey:
         """Key of n generators (next power of two, plus the blinding one),
         loaded from the port's cache or derived with `workers` processes
-        (all cores by default) and cached."""
+        (all cores by default) and cached. The cache name's tag says the
+        map: "ck2" for hash-to-curve, "ck" for the legacy map."""
         num = _next_pow2(n) + 1
-        prefix = f"ck2_{curve.name}_{label.decode()}_"
+        tag = "ck" if _use_legacy_map() else "ck2"
+        prefix = f"{tag}_{curve.name}_{label.decode()}_"
         cache = os.path.join(_KEY_CACHE_DIR, f"{prefix}{num}.npy")
         gens = None
         if os.path.exists(cache):
@@ -296,8 +333,15 @@ class CommitmentEngine:
     def commit(ck: CommitmentKey, v: Sequence[int], r: int = 0) -> Commitment:
         from nova_tpu_torch import native
         from nova_tpu_torch.ops.fvec import FVec, HVec
+        from nova_tpu_torch.parallel import current_mesh
 
         assert len(ck.ck) >= len(v), (len(ck.ck), len(v))
+        mesh = current_mesh()
+        if mesh is not None and len(v) >= 8:
+            from nova_tpu_torch.parallel import msm_sharded
+
+            acc = msm_sharded(v, mesh=mesh, device_bases=ck.device_bases2(len(v)))
+            return _with_blind(ck, acc, r)
         if isinstance(v, HVec) and native.available():
             return CommitmentEngine.commit_limbs(ck, v.limbs64(), r)
         if isinstance(v, FVec):
@@ -323,12 +367,22 @@ class CommitmentEngine:
     @staticmethod
     def commit_limbs(ck: CommitmentKey, vl, r: int = 0) -> Commitment:
         """Commit to a vector given as (n, 4) uint64 normal-form limbs (the
-        native kernels' boundary format)."""
+        native kernels' boundary format). Under a mesh, 8 or more rows take
+        the sharded MSM, as commit does (the JAX package's commit_limbs has
+        no mesh branch; the commitment is the same)."""
         from nova_tpu_torch import native
+        from nova_tpu_torch.parallel import current_mesh
 
         n = vl.shape[0]
         assert len(ck.ck) >= n
-        if native.available():
+        mesh = current_mesh()
+        if mesh is not None and n >= 8:
+            from nova_tpu_torch.ops.fvec import HVec
+            from nova_tpu_torch.parallel import msm_sharded
+
+            acc = msm_sharded(HVec(ck.curve.scalar.p, limbs=vl), mesh=mesh,
+                              device_bases=ck.device_bases2(n))
+        elif native.available():
             acc = native.msm_cached(ck.curve, ck.host_arrays(n), vl)
         else:
             acc = host_msm(native.limbs_to_ints(vl), ck.ck[:n])
@@ -337,11 +391,14 @@ class CommitmentEngine:
     @staticmethod
     def batch_commit(ck: CommitmentKey, vs, rs) -> list:
         """commitment.rs:94-104. Device-resident (FVec) vectors go through
-        the batched MSM: all are queued before the first result is read."""
+        the batched MSM, unless a mesh is active: all are queued before the
+        first result is read."""
         from nova_tpu_torch.ops.fvec import FVec
+        from nova_tpu_torch.parallel import current_mesh
 
         assert len(vs) == len(rs)
-        if len(vs) > 1 and all(isinstance(v, FVec) and len(v) for v in vs):
+        if (len(vs) > 1 and current_mesh() is None
+                and all(isinstance(v, FVec) and len(v) for v in vs)):
             from nova_tpu_torch.ops.msm3 import msm_device3_mont_batch
 
             accs = msm_device3_mont_batch(
@@ -354,10 +411,12 @@ class CommitmentEngine:
     def commit_small(ck: CommitmentKey, v: Sequence[int], r: int = 0) -> Commitment:
         """Small-scalar commit (commitment.rs:123-136, msm_small routing):
         the device path decomposes only enough windows to cover the actual
-        max bit width."""
+        max bit width. Under a mesh it is a plain commit (the sharded MSM)."""
         from nova_tpu_torch.ops.fvec import FVec
+        from nova_tpu_torch.parallel import current_mesh
 
-        if not isinstance(v, FVec) and len(v) >= constants.DEVICE_THRESHOLD:
+        if (current_mesh() is None and not isinstance(v, FVec)
+                and len(v) >= constants.DEVICE_THRESHOLD):
             from nova_tpu_torch.ops.msm3 import msm_device3
 
             vl = [int(x) for x in v]

@@ -26,7 +26,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-from nova_tpu_torch import constants, native, profiling
+from nova_tpu_torch import native, profiling
 from nova_tpu_torch.digest import _u64, map_to_field
 from nova_tpu_torch.errors import (
     InvalidCommitmentKeyLengthError,
@@ -49,7 +49,7 @@ from nova_tpu_torch.spartan.polys import (
     UniPoly,
     log2_int,
 )
-from nova_tpu_torch.spartan.snark import _outer_tables
+from nova_tpu_torch.spartan.snark import _outer_tables, _prove_outer
 from nova_tpu_torch.spartan.sumcheck import NATIVE_MIN, SumcheckProof
 
 
@@ -572,18 +572,8 @@ class RelaxedR1CSSNARK:
 
         with profiling.phase("pp_outer"):
             Az, Bz, Cz, uCz_E = _outer_tables(field, S, U, W, ck.device)
-            if S.num_cons >= constants.DEVICE_THRESHOLD:
-                from nova_tpu_torch.ops.sumcheck import prove_cubic_with_three_inputs_device
-
-                sc_outer, r_outer, claims_outer = prove_cubic_with_three_inputs_device(
-                    field, 0, tau, Az, Bz, uCz_E, transcript, device=ck.device
-                )
-            else:
-                sc_outer, r_outer, claims_outer = SumcheckProof.prove_cubic_with_three_inputs(
-                    field, 0, tau, MultilinearPolynomial(field, Az),
-                    MultilinearPolynomial(field, Bz), MultilinearPolynomial(field, uCz_E),
-                    transcript,
-                )
+            sc_outer, r_outer, claims_outer = _prove_outer(
+                field, S, tau, Az, Bz, uCz_E, transcript, ck.device)
             eval_Az = claims_outer[0]
             eval_Bz = claims_outer[1]
             eval_Cz = MultilinearPolynomial.evaluate_with(field, Cz, r_outer)

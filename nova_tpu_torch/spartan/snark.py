@@ -128,18 +128,8 @@ class RelaxedR1CSSNARK:
         tau = [transcript.squeeze(b"t") for _ in range(num_rounds_x)]
         with profiling.phase("spartan_outer"):
             Az, Bz, Cz, uCz_E = _outer_tables(field, S, U, W, ck.device)
-            if S.num_cons >= constants.DEVICE_THRESHOLD:
-                from nova_tpu_torch.ops.sumcheck import prove_cubic_with_three_inputs_device
-
-                sc_proof_outer, r_x, claims_outer = prove_cubic_with_three_inputs_device(
-                    field, 0, tau, Az, Bz, uCz_E, transcript, device=ck.device
-                )
-            else:
-                sc_proof_outer, r_x, claims_outer = SumcheckProof.prove_cubic_with_three_inputs(
-                    field, 0, tau, MultilinearPolynomial(field, Az),
-                    MultilinearPolynomial(field, Bz), MultilinearPolynomial(field, uCz_E),
-                    transcript,
-                )
+            sc_proof_outer, r_x, claims_outer = _prove_outer(
+                field, S, tau, Az, Bz, uCz_E, transcript, ck.device)
             claim_Az, claim_Bz = claims_outer[0], claims_outer[1]
             claim_Cz = MultilinearPolynomial(field, Cz).evaluate(r_x)
             eval_E = MultilinearPolynomial(field, list(W.E)).evaluate(r_x)
@@ -280,6 +270,30 @@ def _outer_tables(field, S, U, W, device=None):
                 HVec(p, limbs=uCz_E))
     Az, Bz, Cz = S.multiply_vec(z, device)
     return Az, Bz, Cz, [(U.u * c + e) % p for c, e in zip(Cz, W.E)]
+
+
+def _prove_outer(field, S, tau, Az, Bz, uCz_E, transcript, device):
+    """The outer sumcheck sum eq(tau, x) (Az*Bz - uCz_E)(x) = 0 on the first
+    route that applies: sharded over the active mesh when it has more than
+    one device and 2 or more evaluations a device, on `device` at
+    DEVICE_THRESHOLD constraints, else on the host. All three give the same
+    proof."""
+    from nova_tpu_torch.parallel import current_mesh
+
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1 and (1 << len(tau)) // mesh.size >= 2:
+        from nova_tpu_torch.parallel import prove_cubic_with_three_inputs_sharded
+
+        return prove_cubic_with_three_inputs_sharded(
+            field, 0, tau, Az, Bz, uCz_E, transcript, mesh)
+    if S.num_cons >= constants.DEVICE_THRESHOLD:
+        from nova_tpu_torch.ops.sumcheck import prove_cubic_with_three_inputs_device
+
+        return prove_cubic_with_three_inputs_device(
+            field, 0, tau, Az, Bz, uCz_E, transcript, device=device)
+    return SumcheckProof.prove_cubic_with_three_inputs(
+        field, 0, tau, MultilinearPolynomial(field, Az), MultilinearPolynomial(field, Bz),
+        MultilinearPolynomial(field, uCz_E), transcript)
 
 
 def _scalars(field, v) -> bytes:

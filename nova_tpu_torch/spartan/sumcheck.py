@@ -9,6 +9,7 @@ transcript. The device outer sumcheck is ``nova_tpu_torch.ops.sumcheck``.
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence, Tuple
 
 from nova_tpu_torch import native
@@ -152,8 +153,9 @@ class SumcheckProof:
         """sum_x eq(tau,x) * (A(x)*B(x) - C(x)) = claim
         (src/spartan/sumcheck.rs:445-506). With the native binding the eq
         table is never bound when no tau is 0 or 1 (the Gruen eq-factored
-        rounds of src/spartan/sumcheck.rs:580-760), else it is bound
-        alongside the tables; all three loops give the same proof."""
+        rounds of src/spartan/sumcheck.rs:580-760) unless NOVA_NO_GRUEN=1,
+        else it is bound alongside the tables; all three loops give the same
+        proof."""
         p = field.p
         num_rounds = len(taus)
         taus_r = [t % p for t in taus]
@@ -163,7 +165,8 @@ class SumcheckProof:
         if native.available() and len(poly_A) >= NATIVE_MIN:
             Al, Bl, Cl = poly_A.to_limbs(), poly_B.to_limbs(), poly_C.to_limbs()
             El = native.eq_evals_l(p, taus_r)
-            gruen = all(t not in (0, 1) for t in taus_r)
+            gruen = (all(t not in (0, 1) for t in taus_r)
+                     and int(os.environ.get("NOVA_NO_GRUEN", "0")) == 0)
             pre = 1  # eq(tau_{<j}, r_{<j})
             D = 1    # prod_{i<=j} (1 - tau_i)
             for j in range(num_rounds):

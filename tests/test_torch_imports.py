@@ -52,6 +52,8 @@ def test_import_leaves_jax_and_nova_tpu_out():
         "import nova_tpu_torch.frontend.sha256, nova_tpu_torch.neutron\n"
         "import nova_tpu_torch.neutron.circuit, nova_tpu_torch.neutron.ivc\n"
         "import nova_tpu_torch.serde, nova_tpu_torch.checkpoint\n"
+        "import nova_tpu_torch.ops.msm, nova_tpu_torch.parallel\n"
+        "import nova_tpu_torch.graft_entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nova_tpu' or m.startswith('nova_tpu.')]\n"
         "assert not bad, bad\n"
@@ -142,6 +144,20 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):  # before any file is read
         PublicParams.setup_with_ptau_dir(Bn256EngineIPA, GrumpkinEngine, None, ROOT)
+    from nova_tpu_torch import graft_entry
+    from nova_tpu_torch.ops.msm import DeviceBases
+    from nova_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceBases(pallas, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(4, devices=["cuda:0"] * 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.dryrun_multichip(4)
     v = FVec.from_ints(pallas.scalar, [1, 2, 3], device="cpu")
     assert v.device.type == "cpu" and v.to_ints() == [1, 2, 3]
 
