@@ -6,7 +6,8 @@ powers-of-tau key and HyperKZG and Mercury compression, its compression
 with the preprocessing Spartan (ppsnark), DirectSNARK with ppsnark on
 Pallas, the SHA-256 step circuit's IVC, NeutronNova's IVC, checkpoints and
 proofs as bytes, the device mesh (sharded MSM, a meshed fold step and
-compression, the graft_entry twin), and the field microbenchmark.
+compression, the graft_entry twin), the entry points (the bench.py twin,
+MinRoot at 2^15 iterations a step), and the field microbenchmark.
 
     python3 chip_smoke.py                # 2^16 commit, 2^17 fold steps
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
@@ -15,7 +16,8 @@ compression, the graft_entry twin), and the field microbenchmark.
                                          # commits on the native host MSM,
                                          # a 500-square DirectSNARK, a
                                          # 3-byte SHA-256 message, a 2^14
-                                         # Neutron structure, a
+                                         # Neutron structure, MinRoot at 8
+                                         # iterations a step, a
                                          # 2^10-column microbenchmark),
                                          # plain versions, no result
 
@@ -168,13 +170,28 @@ result line):
    just before each part and read just after; phase 7 also proves its
    outer sumcheck on this mesh (the sharded route: one proof on three
    routes);
+16. the entry points: `python -m nova_tpu_torch.bench` with
+   NOVA_BENCH_FAST=1 in a subprocess (its last line has bench.py's keys,
+   backend "cuda (msm3m)" and a value above 0, and its stage's build_info
+   says built False: the kernel library found, not rebuilt), MinRoot's
+   advice computed meanwhile; in-process, the bench twin's
+   bench_msm("msm1") at 2^16 on the b"bench-msm" key (equal to the native
+   host MSM), then one K1, K2 and K3 call of such an MSM at each shape it
+   launches against its plain version (bitwise); the MinRoot example's
+   twin at 2^15 iterations a step (a primary padded to 2^17, phase 5's
+   key) x 3 steps, handed that advice: both verifies pass,
+   z_n is the advice's last iterate, a proof with zn changed fails, and
+   the largest K1, K5 and B6 call of the replayed step and of the
+   compression equal their plain versions (bitwise) and are timed at their
+   shapes; the counts reset just before each part and read just after;
+   each part's wall seconds;
 8. the field microbenchmark (perf/ubench_field.py's lines, N = 2^18,
    ITERS = 20) with the counts reset just before and read just after; P1
    and P2 (one kernel, two limb layouts) against their plain versions
    (bitwise) and timed beside their bound: one Montgomery product per
    column and step.
 
-Phases run in the order 1-7, 9-15, 8; each header line gives the
+Phases run in the order 1-7, 9-16, 8; each header line gives the
 seconds since the start. After them, launches are checked: K3
 (a key's window precompute only) must not launch in a commit, a replayed
 prove_step (either curve cycle, or the SHA-256 circuit's), an msm_device2
@@ -193,9 +210,11 @@ import argparse
 import contextlib
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -280,6 +299,18 @@ STAGE_MULS = {"complete": 26, "fast": 14, "fast0": 6}
 MESH_DEVICES = 4
 MESH_MSM_KERNELS = ("mont_mul", "xyzz_add", "accum", "suffix_segmented", "bucket_reduce")
 ENTRY_KERNELS = ("mont_mul", "xyzz_add", "xyzz_double")
+# rows of captured K1-K3 calls that one plain call takes at most (msm1 at
+# 2^16 makes combine calls of 20 windows x 2^16 lanes)
+PLAIN_ROWS = 1 << 21
+# phase 16: MinRoot's iterations a step (3 constraints each: 2^15 pads the
+# primary to 2^17, phase 5's key) and steps, the kernels its replayed step
+# and compression must launch, and the bench twin's line
+MINROOT_ITERS, REHEARSE_MINROOT_ITERS, MINROOT_STEPS = 1 << 15, 8, 3
+MINROOT_KERNELS = ("mont_mul", "bucket_reduce", "stage")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_METRIC = "msm_points_per_sec_per_chip_2e16"
+BENCH_TIMEOUT_S = 300
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 class PhaseError(RuntimeError):
@@ -413,17 +444,20 @@ def _copy(x):
 def largest_calls(targets: dict):
     """While installed, keep a copy of the arguments of the largest call
     (by tensor elements; the latest among equals) of each function in
-    `targets` ({name: (module, attribute)}); yields {name: args}."""
+    `targets` ({name: (module, attribute)}); yields {name: args}. Keyword
+    arguments are kept after the positional ones, in the order given (B6's
+    `live` is its last parameter)."""
     seen, sizes, saved = {}, {}, []
     for name, (mod, attr) in targets.items():
         real = getattr(mod, attr)
         saved.append((mod, attr, real))
 
-        def wrapper(*a, _name=name, _real=real):
-            size = _numel(a)
+        def wrapper(*a, _name=name, _real=real, **k):
+            args = a + tuple(k.values())
+            size = _numel(args)
             if size >= sizes.get(_name, -1):
-                sizes[_name], seen[_name] = size, _copy(a)
-            return _real(*a)
+                sizes[_name], seen[_name] = size, _copy(args)
+            return _real(*a, **k)
 
         setattr(mod, attr, wrapper)
     try:
@@ -433,18 +467,29 @@ def largest_calls(targets: dict):
             setattr(mod, attr, real)
 
 
+def shape_key(args) -> tuple:
+    """The shapes of a kernel wrapper's arguments after its TField (a
+    tensor's, each coordinate's of a point dict) and its integers."""
+    return tuple(tuple(a.shape) if hasattr(a, "shape")
+                 else tuple(tuple(v.shape) for v in a.values()) if isinstance(a, dict)
+                 else a for a in args[1:])
+
+
 @contextlib.contextmanager
-def every_call(targets: dict):
+def every_call(targets: dict, one_per_shape: bool = False):
     """While installed, keep a copy of the arguments of every call of each
-    function in `targets` ({name: (module, attribute)}); yields
-    {name: [args, ...]} in call order."""
-    seen, saved = {name: [] for name in targets}, []
+    function in `targets` ({name: (module, attribute)}), or with
+    `one_per_shape` of the latest call at each distinct shape_key; yields
+    {name: [args, ...]}, filled in call order when the block ends."""
+    seen, saved = {name: {} for name in targets}, []
     for name, (mod, attr) in targets.items():
         real = getattr(mod, attr)
         saved.append((mod, attr, real))
 
         def wrapper(*a, _name=name, _real=real):
-            seen[_name].append(_copy(a))
+            key = shape_key(a) if one_per_shape else len(seen[_name])
+            seen[_name].pop(key, None)  # the latest call of a shape comes last
+            seen[_name][key] = _copy(a)
             return _real(*a)
 
         setattr(mod, attr, wrapper)
@@ -453,6 +498,8 @@ def every_call(targets: dict):
     finally:
         for mod, attr, real in saved:
             setattr(mod, attr, real)
+        for name in seen:
+            seen[name] = list(seen[name].values())
 
 
 def kernel_vs_plain(torch, name: str, args) -> int:
@@ -491,38 +538,71 @@ def kernel_vs_plain(torch, name: str, args) -> int:
         got, ref = msm3.accum(*args), msm3.accum_plain(*args)
         return max(max_abs_err(torch, got[0], ref[0]), max_abs_err(torch, got[1], ref[1]),
                    int((got[2] - ref[2]).abs().max().item()))
+    if name == "stage":
+        # (tf, rounds, masks, pts, mode, live); a flag that differs counts 1;
+        # the plain version in blocks of PLAIN_ROWS lanes (the same values)
+        (got, gflag), (ref, rflag) = (msm2.stage(*args),
+                                      msm2.stage_plain(*args, block=PLAIN_ROWS))
+        return max(max_abs_err(torch, got, ref), int(bool(gflag.any()) != bool(rflag)))
     raise ValueError(name)
 
 
 def calls_vs_plain(torch, name: str, calls) -> int:
-    """Kernel `name` (K1, K2 or K3) launched at each captured call's own
-    shapes against its plain version run once over every call's rows
-    stacked (per doubling count for K3; the plain versions are
-    row-wise): the largest difference over limbs."""
+    """Kernel `name` (K1, K2, K3 or K5) launched at each captured call's
+    own shapes against its plain version run over the rows of many calls
+    stacked (by field, and by doubling count for K3; the plain versions
+    are row-wise), at most PLAIN_ROWS rows or one call at a time; K5's
+    plain version over the tables of one size as a batch: the largest
+    difference over limbs."""
     from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.ops import msm2
 
-    if name == "mont_mul":
-        return max(kernel_vs_plain(torch, name, a) for a in calls)
-    tf = calls[0][0]
-    o = tf.ops(first_input(calls[0]).device)
-    groups = {}
-    for a in calls:
-        pts = [P for P in a[1:] if isinstance(P, dict)]
-        shape = torch.broadcast_shapes(*(P[k].shape for P in pts for k in fk.KEYS))
-        times = tuple(x for x in a[2:] if isinstance(x, int))
-        got = (fk.xyzz_add(tf, *pts) if name == "xyzz_add"
-               else fk.xyzz_double(tf, pts[0], *times))
-        flat = [{k: P[k].expand(shape).reshape(-1, 16) for k in fk.KEYS} for P in pts]
-        groups.setdefault(times, []).append(
-            (flat, {k: got[k].reshape(-1, 16) for k in fk.KEYS}))
-    err = 0
-    for times, rows in groups.items():
-        ins = [tuple(torch.cat([f[i][k] for f, _ in rows]).long() for k in fk.KEYS)
-               for i in range(len(rows[0][0]))]
+    err, groups = 0, {}
+    if name == "bucket_reduce":
+        for a in calls:
+            groups.setdefault((a[0].spec.p, a[1]["x"].shape), []).append(a)
+        for cs in groups.values():
+            tf = cs[0][0]
+            ref = msm2.bucket_reduce_plain(
+                tf, {k: torch.stack([a[1][k] for a in cs]) for k in fk.KEYS})
+            for i, a in enumerate(cs):
+                err = max(err, max_abs_err(torch, msm2._bucket_reduce(tf, a[1]),
+                                           {k: ref[k][i] for k in fk.KEYS}))
+        return err
+    keys = ("x",) if name == "mont_mul" else fk.KEYS
+
+    def flush(key):
+        tf, rows = groups.pop(key)
+        ins = [tuple(torch.cat([r[i][k] for r in rows]).long() for k in keys)
+               for i in range(len(rows[0]))]
+        got = dict(zip(keys, ins.pop()))
+        o = tf.ops(got["x"].device)
+        if name == "mont_mul":
+            return int((got["x"] - o.mul(ins[0][0], ins[1][0])).abs().max().item())
         ref = (fk.xyzz_add_limbs(o, *ins) if name == "xyzz_add"
-               else fk.xyzz_double_limbs(o, ins[0], *times))
-        got = {k: torch.cat([g[k] for _, g in rows]) for k in fk.KEYS}
-        err = max(err, max_abs_err(torch, got, dict(zip(fk.KEYS, ref))))
+               else fk.xyzz_double_limbs(o, ins[0], *key[1]))
+        return max_abs_err(torch, got, dict(zip(fk.KEYS, ref)))
+
+    for a in calls:
+        tf = a[0]
+        if name == "mont_mul":
+            # the operands broadcast to the call's shape, as one-key dicts
+            ops = [{"x": t} for t in a[1:]]
+            got, times = {"x": fk.mont_mul(tf, a[1], a[2])}, ()
+        else:
+            ops = [P for P in a[1:] if isinstance(P, dict)]
+            times = tuple(x for x in a[2:] if isinstance(x, int))
+            got = (fk.xyzz_add(tf, *ops) if name == "xyzz_add"
+                   else fk.xyzz_double(tf, ops[0], *times))
+        shape = torch.broadcast_shapes(*(P[k].shape for P in ops for k in keys))
+        row = [{k: P[k].expand(shape).reshape(-1, 16) for k in keys} for P in ops + [got]]
+        key = (tf.spec.p, times)
+        rows = groups.setdefault(key, (tf, []))[1]
+        rows.append(row)
+        if sum(r[0]["x"].shape[0] for r in rows) >= PLAIN_ROWS:
+            err = max(err, flush(key))
+    for key in list(groups):
+        err = max(err, flush(key))
     return err
 
 
@@ -2463,6 +2543,274 @@ def mesh_path(args, torch, dev, ck, v, host_point, fold) -> dict:
     return out
 
 
+def bench_line(args) -> dict:
+    """Phase 16 (a): `python -m nova_tpu_torch.bench` with NOVA_BENCH_FAST=1
+    in a subprocess: its last line has bench.py's keys, its headline comes
+    from msm3m on the card, and its stage's build_info says the kernel
+    library was found, not rebuilt (the no-rebuild contract that stands for
+    the JAX package's ops/aot.py). In a rehearsal (no card) it must print
+    value 0.0 with an error and exit non-zero."""
+    env = {**os.environ, "NOVA_BENCH_FAST": "1"}
+    t0 = time.perf_counter()
+    # its own process group, so a timeout stops its stage processes too
+    proc = subprocess.Popen([sys.executable, "-m", "nova_tpu_torch.bench"], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise PhaseError(f"the bench did not finish in {BENCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    lines = stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        raise PhaseError(f"the bench printed no JSON line (rc {proc.returncode}): "
+                         f"{stdout[-1000:]} {stderr[-2000:]}")
+    log(f"nova_tpu_torch.bench (NOVA_BENCH_FAST=1, {wall:.1f} s, rc {proc.returncode}): "
+        + json.dumps(line))
+    if set(line) != BENCH_KEYS or line["metric"] != BENCH_METRIC or "backend" not in line["extra"]:
+        raise PhaseError(f"the bench's line has not bench.py's shape: {line}")
+    if "fallback" in stdout:
+        raise PhaseError("the bench reported a fallback")
+    out = {"line": line, "wall_s": wall}
+    if args.rehearse:
+        if proc.returncode == 0 or line["value"] != 0.0 or "error" not in line["extra"]:
+            raise PhaseError("without a card the bench must print value 0.0 and an error "
+                             "and exit non-zero")
+        return out
+    build = [ln for ln in lines if ln.startswith("build_info msm3m ")]
+    if proc.returncode != 0 or line["extra"]["backend"] != "cuda (msm3m)" or not line["value"] > 0:
+        raise PhaseError(f"the bench's headline is not msm3m's on the card (rc "
+                         f"{proc.returncode}): {line}; {stderr[-2000:]}")
+    if not build:
+        raise PhaseError("the bench's msm3m stage printed no build_info")
+    info = json.loads(build[0].split(" ", 2)[2])
+    log(f"the bench stage's kernel library: {json.dumps(info)}")
+    if info.get("built") is not False:
+        raise PhaseError(f"the bench's stage rebuilt the kernel library: {info}")
+    out["build_info"] = info
+    return out
+
+
+def entry_path(args, torch, dev) -> dict:
+    """Phase 16: the entry points. (a) bench_line, while a thread of this
+    process computes MinRoot's advice (host Python only); (b) in-process,
+    the bench twin's bench_msm("msm1") on the b"bench-msm" key (its result
+    against the native host MSM; the counts reset just before and read
+    just after), then the K1, K2 and K3 calls of one msm1 MSM on those
+    inputs, the latest at each shape, against their plain versions
+    (bitwise); (c) examples/minroot's twin, main([MINROOT_ITERS,
+    MINROOT_STEPS], device=dev), handed the advice of (a) when it asks for
+    that sequence: the RecursiveSNARK and the compressed proof verify
+    (main verifies both), z_n equals the advice's last iterate, a proof
+    with zn changed fails; the largest K1, K5 and B6 call of the replayed
+    (third) prove_step and of the compression against their plain versions
+    (bitwise; the K1 calls' plain rows stacked, the K5 tables as one
+    batch) and timed at their shapes; the counts reset just before main
+    and read just after, and per replayed step and compression. Each
+    part's wall seconds are printed. The bench twin's
+    bench_fold_and_compress is not run here: its trivial circuit stays
+    under DEVICE_THRESHOLD and launches no kernel (the tests hold it
+    against bench.py's on the CPU)."""
+    from nova_tpu_torch import _build, bench
+    from nova_tpu_torch.examples import minroot
+    from nova_tpu_torch.fields import kernels as fk
+    from nova_tpu_torch.nova.compressed import CompressedSNARK
+    from nova_tpu_torch.nova.ivc import RecursiveSNARK
+    from nova_tpu_torch.ops import msm, msm2
+    from nova_tpu_torch.provider.engines import PallasEngine
+
+    log("== phase 16: entry points (the bench twin, msm1 at 2^16, MinRoot)")
+    t16 = time.perf_counter()
+    reps = 1 if args.rehearse else 3
+    out = {"launches": {}, "wall_s": {}}
+    iters = REHEARSE_MINROOT_ITERS if args.rehearse else MINROOT_ITERS
+
+    # -- (a) the bench twin as a user runs it -------------------------------
+    # MinRoot's advice (the VDF's sequential evaluation, host Python only)
+    # is computed meanwhile, while this process waits on the bench's; (c)
+    # hands it to main() when main asks for the same sequence
+    real_seq = minroot.MinRootIteration.seq
+    advice = {"key": (PallasEngine.scalar, iters * MINROOT_STEPS, 2, 3)}
+
+    def compute_advice():
+        t = time.perf_counter()
+        advice["seq"] = real_seq(*advice["key"])
+        advice["s"] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=compute_advice)
+    worker.start()
+    try:
+        out["bench"] = bench_line(args)
+    finally:
+        worker.join()
+    out["wall_s"]["bench"] = time.perf_counter() - t0
+    if "seq" not in advice:
+        raise PhaseError("MinRoot's advice failed beside the bench")
+    log(f"MinRoot's advice ({iters * MINROOT_STEPS} iterations) beside the bench: "
+        f"{advice['s']:.1f} s")
+
+    # -- (b) msm1 on the bench's key, in-process ------------------------------
+    t0 = time.perf_counter()
+    msm1_n = 1 << (REHEARSE_LOG_N if args.rehearse else LOG_N)
+    _build.reset_launches()
+    rate = bench.bench_msm("msm1", n=msm1_n, device=dev, iters=reps)
+    sync(torch)
+    out["launches"]["msm1"] = dict(_build.LAUNCHES)
+    out["msm1"] = {"n": msm1_n, "pts_per_s": rate}
+    log(f"bench_msm('msm1') at n = {msm1_n}: == host MSM, {rate:.1f} points/s; launches "
+        f"{out['launches']['msm1']}")
+    if not args.rehearse and any(out["launches"]["msm1"][k] == 0 for k in ENTRY_KERNELS):
+        raise PhaseError(f"msm1 did not launch {ENTRY_KERNELS}: {out['launches']['msm1']}")
+    out["wall_s"]["msm1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the K1, K2 and K3 calls of one such MSM against their plain versions,
+    # the latest call at each shape: K1 marshalling the bases and in the
+    # finish, K2 over the 20 x 2^16 combine lanes, the 20 x 2^13 table
+    # merge and scans and the one-row Horner finish, K3 at times = 13
+    ck, scalars = bench._msm_inputs(msm1_n, dev)
+    with every_call({"mont_mul": (fk, "mont_mul"), "xyzz_add": (fk, "xyzz_add"),
+                     "xyzz_double": (fk, "xyzz_double")}, one_per_shape=True) as calls:
+        db = msm.DeviceBases(ck.curve, ck.ck[:msm1_n], device=dev)
+        msm.msm_device(scalars, device_bases=db)
+    out["wall_s"]["msm1_capture"] = time.perf_counter() - t0
+    errs, shapes = {}, {}
+    for name, cs in calls.items():
+        t1 = time.perf_counter()
+        errs[name] = calls_vs_plain(torch, name, cs)
+        out["wall_s"][f"msm1_{name}_vs_plain"] = time.perf_counter() - t1
+        shapes[name] = sorted((tuple(first_input(a).shape),)
+                              + tuple(x for x in a[2:] if isinstance(x, int)) for a in cs)
+    del calls
+    out["msm1"]["shapes"] = shapes
+    log(f"msm1's kernel calls against their plain versions, one at each shape (max |kernel "
+        f"- plain| at {json.dumps(shapes)}): {errs}")
+    if any(errs.values()):
+        raise PhaseError(f"msm1's kernels disagree with their plain versions: {errs}")
+
+    # -- (c) MinRoot ----------------------------------------------------------
+    t0 = time.perf_counter()
+    targets = {"mont_mul": (fk, "mont_mul"), "bucket_reduce": (msm2, "_bucket_reduce"),
+               "stage": (msm2, "stage")}
+    seen, step_launches = {}, []
+    real_step, real_prove = RecursiveSNARK.prove_step, CompressedSNARK.prove
+
+    def step(self, pp, c):
+        before = dict(_build.LAUNCHES)
+        if len(step_launches) != MINROOT_STEPS - 1:
+            res = real_step(self, pp, c)
+        else:  # the replay of the tape built by the second step
+            with largest_calls(targets) as calls:
+                res = real_step(self, pp, c)
+            seen["replayed step"] = calls
+        step_launches.append(launch_delta(_build, before))
+        return res
+
+    def prove(pp, pk, rs):
+        before = dict(_build.LAUNCHES)
+        with largest_calls(targets) as calls:
+            res = real_prove(pp, pk, rs)
+        seen["compression"] = calls
+        out["launches"]["minroot_compression"] = launch_delta(_build, before)
+        return res
+
+    def seq(*key):
+        if key != advice["key"]:
+            return real_seq(*key)
+        advice["handed"] = True
+        return advice["seq"]
+
+    RecursiveSNARK.prove_step, CompressedSNARK.prove = step, staticmethod(prove)
+    minroot.MinRootIteration.seq = staticmethod(seq)
+    try:
+        _build.reset_launches()
+        mr = minroot.main([str(iters), str(MINROOT_STEPS)], device=dev)
+        sync(torch)
+    finally:
+        RecursiveSNARK.prove_step, CompressedSNARK.prove = real_step, staticmethod(real_prove)
+        minroot.MinRootIteration.seq = staticmethod(real_seq)
+    out["launches"]["minroot"] = dict(_build.LAUNCHES)
+    out["launches"]["minroot_steps"] = step_launches
+    last = mr["circuits"][-1].seq[-1]
+    if mr["zn"] != [last.x_i_plus_1, last.y_i_plus_1]:
+        raise PhaseError(f"MinRoot's z_n {mr['zn']} is not the advice's last iterate")
+    proof, zn, p = mr["proof"], list(mr["proof"].zn), mr["pp"].r1cs_shape_primary.field.p
+
+    def changed_zn():
+        proof.zn = [(zn[0] + 1) % p] + zn[1:]
+
+    def kept_zn():
+        proof.zn = zn
+
+    tampered_fail(lambda: proof.verify(mr["vk"], MINROOT_STEPS, mr["z0"]),
+                  [("zn", changed_zn, kept_zn)])
+    out["minroot"] = {"iters_per_step": iters, "steps": MINROOT_STEPS,
+                      "constraints": list(mr["pp"].num_constraints()),
+                      "advice_beside_bench_s": advice["s"],
+                      "advice_handed_to_main": advice.get("handed", False),
+                      "seconds": mr["seconds"]}
+    out["wall_s"]["minroot"] = time.perf_counter() - t0
+    log(f"MinRoot {iters} x {MINROOT_STEPS}: verified, compressed and verified; "
+        f"{json.dumps(out['minroot'])}; launches {out['launches']['minroot']}")
+    if not args.rehearse:
+        parts = {"replayed step": step_launches[-1],
+                 "compression": out["launches"]["minroot_compression"]}
+        missing = {part: [k for k in MINROOT_KERNELS if ls[k] == 0] for part, ls in parts.items()}
+        if any(missing.values()) or step_launches[-1]["xyzz_double"]:
+            raise PhaseError(f"MinRoot's {MINROOT_KERNELS} must launch in the replayed step and "
+                             f"the compression, K3 not in the replay: not launched {missing}, "
+                             f"replay {step_launches[-1]}")
+
+    # the largest K1, K5 and B6 call of the replayed step and of the
+    # compression against their plain versions, and timed at their shapes
+    t0 = time.perf_counter()
+    mr_errs, shapes = {}, {}
+    for name in MINROOT_KERNELS:
+        calls = {part: c[name] for part, c in seen.items() if name in c}
+        if not calls:  # a rehearsal's primary stays under DEVICE_THRESHOLD
+            continue
+        t1 = time.perf_counter()
+        if name != "stage":
+            mr_errs[name] = calls_vs_plain(torch, name, list(calls.values()))
+        else:
+            mr_errs[name] = max(kernel_vs_plain(torch, name, a) for a in calls.values())
+        out["wall_s"][f"minroot_{name}_vs_plain"] = time.perf_counter() - t1
+        shapes[name] = {part: minroot_shape(torch, name, a, reps) for part, a in calls.items()}
+    out["wall_s"]["kernel_checks"] = time.perf_counter() - t0
+    log(f"MinRoot's largest K1, K5, B6 calls against their plain versions (max |kernel - "
+        f"plain|): {mr_errs}; at their shapes: {json.dumps(shapes)}")
+    if any(mr_errs.values()):
+        raise PhaseError(f"MinRoot's kernels disagree with their plain versions: {mr_errs}")
+    for name, e in mr_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    out["kernel_errs"], out["shape_ms"] = errs, shapes
+    out["wall_s"]["phase"] = time.perf_counter() - t16
+    log(f"phase 16 parts (wall s): {json.dumps(out['wall_s'])}; card: "
+        f"{smi_line() if not args.rehearse else 'rehearsal on the CPU'}")
+    return out
+
+
+def minroot_shape(torch, name: str, a, reps: int) -> dict:
+    """A captured K1, K5 or B6 call timed (CUDA events) beside its bound."""
+    if name == "mont_mul":
+        rows = torch.broadcast_shapes(a[1].shape, a[2].shape).numel() // 16
+        nbytes = sum(t.numel() * t.element_size() for t in a[1:]) + ROW * rows
+        shape, (b_ms, b_by) = f"{rows} rows", bound(nbytes, MUL_OPS * rows)
+    elif name == "bucket_reduce":
+        nb = a[1]["x"].shape[0]
+        shape, (b_ms, b_by) = f"{nb} buckets", bucket_reduce_bound(nb)
+    else:
+        masks, mode, live = a[2], a[4], a[5]
+        shape = f"{masks.shape[1]} lanes x {masks.shape[0]} rounds, {mode}"
+        b_ms, b_by = stage_bound(masks, mode, live is not None)
+    return {"shape": shape, "ms": cuda_ms(torch, kernel_call(name, a), reps),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def field_ubench(args, torch, dev) -> dict:
     """Phase 8: perf/ubench_field.py's benchmark on the card (its lines, the
     counts reset just before and read just after), then P1 and P2 against
@@ -2893,6 +3241,7 @@ def run(args) -> dict:
     neutron = neutron_path(args, torch, dev)
     as_bytes = bytes_path(args, torch, fold, comp, sha.pop("pp"))
     mesh = mesh_path(args, torch, dev, ck, v, com.point, fold)
+    entry = entry_path(args, torch, dev)
     ubench = field_ubench(args, torch, dev)
     log("compression: " + json.dumps({k: v for k, v in comp.items()
                                       if k not in ("snark", "vk")}))
@@ -2903,6 +3252,7 @@ def run(args) -> dict:
     log("Neutron path: " + json.dumps(neutron))
     log("bytes: " + json.dumps(as_bytes))
     log("mesh: " + json.dumps({k: v for k, v in mesh.items() if k != "step"}))
+    log("entry points: " + json.dumps(entry))
     log("field microbenchmark: " + json.dumps(ubench))
     if not args.rehearse:
         # the bucket stage's contract: no K3 per call on any path (K3 runs
@@ -2946,7 +3296,8 @@ def run(args) -> dict:
             row["max_abs_err"] = max(row["max_abs_err"], kzg["kernel_errs"]["stage"],
                                      spark["kernel_errs"].get("stage", 0),
                                      sha["kernel_errs"]["stage"],
-                                     neutron["kernel_errs"]["stage"])
+                                     neutron["kernel_errs"]["stage"],
+                                     entry["kernel_errs"].get("stage", 0))
         elif name in UBENCH_KERNELS:
             row = {k: ubench["rows"][name][k] for k in
                    ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2956,6 +3307,7 @@ def run(args) -> dict:
             err = max(errs.get(name, 0), fold["kernel_errs"].get(name, 0),
                       kzg["kernel_errs"].get(name, 0), spark["kernel_errs"].get(name, 0),
                       sha["kernel_errs"].get(name, 0), mesh["kernel_errs"].get(name, 0),
+                      entry["kernel_errs"].get(name, 0),
                       comp["k1_err"] if name == "mont_mul" else 0,
                       comp["k5_err"] if name == "bucket_reduce" else 0)
             row = {"launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -3000,6 +3352,13 @@ def run(args) -> dict:
             "neutron_step_launches": [sl[name] for sl in neutron["launches_per_step"]],
             "mesh_launches": {part: ls[name] for part, ls in mesh["launches"].items()},
             "mesh_shape_ms": mesh["shape_ms"].get(name),
+            "entry_launches": {
+                "msm1": entry["launches"]["msm1"][name],
+                "minroot": entry["launches"]["minroot"][name],
+                "minroot_steps": [sl[name] for sl in entry["launches"]["minroot_steps"]],
+                "minroot_compression": entry["launches"]["minroot_compression"][name],
+            },
+            "minroot_shape_ms": entry["shape_ms"].get(name),
             "precompute_launches": {
                 "commit_key": msm["precompute_launches"][name],
                 "witness_key": fold["witness_precompute_launches"][name],

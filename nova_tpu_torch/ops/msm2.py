@@ -73,18 +73,19 @@ _SLOTS = 32  # width of K5's last pairwise sum (log2(nb) + 1 <= 32 values)
 
 
 def _pairs_add(o, X):
-    """Complete adds of neighbouring rows, (A, 2n, 16) -> (A, n, 16)."""
-    return xyzz_add_limbs(o, tuple(v[:, 0::2] for v in X), tuple(v[:, 1::2] for v in X))
+    """Complete adds of neighbouring rows, (..., A, 2n, 16) -> (..., A, n, 16)."""
+    return xyzz_add_limbs(o, tuple(v[..., 0::2, :] for v in X),
+                          tuple(v[..., 1::2, :] for v in X))
 
 
 def _bit_sum_tree(o, X, levels: int):
-    """`levels` levels of K5's pairwise tree over (1, nb, 16) int64 rows X
-    (a tuple of four): returns (1 + levels, nb >> levels, 16) arrays
+    """`levels` levels of K5's pairwise tree over (..., 1, nb, 16) int64 rows
+    X (a tuple of four): returns (..., 1 + levels, nb >> levels, 16) arrays
     [R, V_0, .., V_(levels-1)], where R[j] sums the 2^levels rows of node j
     and V_k[j] those of its rows whose index has bit k."""
     for _ in range(levels):
         S = _pairs_add(o, X)
-        X = tuple(torch.cat([s, v[:1, 1::2]]) for s, v in zip(S, X))
+        X = tuple(torch.cat([s, v[..., :1, 1::2, :]], dim=-3) for s, v in zip(S, X))
     return X
 
 
@@ -96,21 +97,24 @@ def bucket_reduce_plain(tf: TField, table: dict) -> dict:
     (each level adds neighbouring pairs of every array and appends the
     right-hand node sums as V_l); then V_k doubled k times and the values
     [R, V_0, 2 V_1, ..] plus zero rows added pairwise over _SLOTS slots.
-    Returns (1, 16) coordinates."""
+    Returns (1, 16) coordinates; a batch of tables, (B, nb, 16), gives
+    (B, 1, 16) in the same number of steps."""
     o = tf.ops(table["x"].device)
-    nb = table["x"].shape[0]
+    nb = table["x"].shape[-2]
     n = nb.bit_length() - 1
     assert nb == 1 << n and n >= 1, nb
-    X = _bit_sum_tree(o, tuple(v[None] for v in _as_limbs(table)), n)
-    V = tuple(v[1:, 0] for v in X)  # (n, 16): V_0 .. V_(n-1)
+    X = _bit_sum_tree(o, tuple(v.unsqueeze(-3) for v in _as_limbs(table)), n)
+    V = tuple(v[..., 1:, 0, :] for v in X)  # (..., n, 16): V_0 .. V_(n-1)
     for d in range(1, n):
-        V = tuple(torch.cat([a, b]) for a, b in zip(
-            tuple(v[:d] for v in V), xyzz_double_limbs(o, tuple(v[d:] for v in V))))
-    pad = X[0].new_zeros((_SLOTS - n - 1, NUM_LIMBS))
-    Y = tuple(torch.cat([x[:1, 0], v, pad])[None] for x, v in zip(X, V))
-    while Y[0].shape[1] > 1:
+        V = tuple(torch.cat([a, b], dim=-2) for a, b in zip(
+            tuple(v[..., :d, :] for v in V),
+            xyzz_double_limbs(o, tuple(v[..., d:, :] for v in V))))
+    pad = X[0].new_zeros(X[0].shape[:-3] + (_SLOTS - n - 1, NUM_LIMBS))
+    Y = tuple(torch.cat([x[..., :1, 0, :], v, pad], dim=-2).unsqueeze(-3)
+              for x, v in zip(X, V))
+    while Y[0].shape[-2] > 1:
         Y = _pairs_add(o, Y)
-    return _from_limbs(tuple(v[0] for v in Y))
+    return _from_limbs(tuple(v[..., 0, :, :] for v in Y))
 
 
 def _bucket_reduce(tf: TField, table: dict) -> dict:

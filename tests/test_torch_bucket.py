@@ -182,6 +182,19 @@ def test_bucket_reduce_plain_matches_host(case, nb, mults):
         assert got is None
 
 
+def test_bucket_reduce_plain_batch_equals_each_table(mults):
+    """A batch of tables through plain K5 at once gives each table's own
+    result, limb for limb (the shape (B, 1, 16))."""
+    tf = TField(TCURVE.base)
+    tables = [_torch_rows(_bucket_case(case, 512, mults)[1])
+              for case in ("random", "empty", "holes")]
+    got = msm2.bucket_reduce_plain(tf, {k: torch.stack([t[k] for t in tables]) for k in KEYS})
+    assert got["x"].shape == (3, 1, 16)
+    for i, t in enumerate(tables):
+        one = msm2.bucket_reduce_plain(tf, t)
+        assert all(torch.equal(got[k][i], one[k]) for k in KEYS)
+
+
 @pytest.mark.parametrize("pairs", [4, 32])
 def test_bucket_block_partials_match_host(pairs, mults):
     """What a K5 block of `pairs` threads writes (the tree after

@@ -54,6 +54,12 @@ def test_import_leaves_jax_and_nova_tpu_out():
         "import nova_tpu_torch.serde, nova_tpu_torch.checkpoint\n"
         "import nova_tpu_torch.ops.msm, nova_tpu_torch.parallel\n"
         "import nova_tpu_torch.graft_entry\n"
+        "import nova_tpu_torch._env, nova_tpu_torch.bench, nova_tpu_torch.benches.commit\n"
+        "import nova_tpu_torch.benches.recursive_snark, nova_tpu_torch.benches.sha256\n"
+        "import nova_tpu_torch.benches.compressed_snark, nova_tpu_torch.benches.ppsnark\n"
+        "import nova_tpu_torch.benches.sumcheckeq, nova_tpu_torch.examples.minroot\n"
+        "import nova_tpu_torch.examples.and_example, nova_tpu_torch.examples.hashchain\n"
+        "import nova_tpu_torch.examples.ptau_test_setup, nova_tpu_torch.examples.ppot_prune\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nova_tpu' or m.startswith('nova_tpu.')]\n"
         "assert not bad, bad\n"
