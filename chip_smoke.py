@@ -942,11 +942,18 @@ def path_kernels(args, torch, dev, pp, rs, workers: int, reps: int, timed: bool)
             "precompute": precompute, "commit_T_ms": t_ms}
 
 
+def _profile(on: bool) -> None:
+    """Turn the prover's phase totals (nova_tpu_torch.profiling) on or off."""
+    from nova_tpu_torch import profiling
+
+    profiling.enable(on)
+
+
 def drive_steps(torch, pp, circuit, steps: int, squares: int, modulus: int) -> dict:
     """RecursiveSNARK.new on z0 = [2], `steps` prove_steps (each timed, by
     phase too, with its launches), then verify, which must return
     z0^(2^(squares * steps)) mod `modulus`. The counts are reset just
-    before new; NOVA_PROFILE must be set."""
+    before new; the phase totals must be on (_profile(True))."""
     from nova_tpu_torch import _build, profiling
     from nova_tpu_torch.nova.ivc import RecursiveSNARK
 
@@ -1013,9 +1020,9 @@ def fold_step(args, torch, dev, workers: int, msm_ck, msm_scal) -> dict:
     if pp.num_constraints()[0] != 1 << log_cons:
         raise PhaseError(f"primary has {pp.num_constraints()[0]} constraints")
 
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     run = drive_steps(torch, pp, circuit, FOLD_STEPS, squares, pallas.scalar.p)
-    del os.environ["NOVA_PROFILE"]
+    _profile(False)
     rs, new_s, step_s = run["rs"], run["new_s"], run["step_s"]
     step_launches, step_phases = run["step_launches"], run["step_phases"]
     verify_s, verify_launches = run["verify_s"], run["verify_launches"]
@@ -1277,7 +1284,7 @@ def compress(args, torch, dev, pp, rs) -> dict:
         return pair["U"], pair["W"]
 
     z0 = [2]
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     dsc.DeviceSumcheck.cubic_eq_round = first_round
     S.sample_random_instance_witness = sample
     try:
@@ -1298,7 +1305,7 @@ def compress(args, torch, dev, pp, rs) -> dict:
             sync(torch)
             verify_s = time.perf_counter() - t0
             launches = dict(_build.LAUNCHES)
-            del os.environ["NOVA_PROFILE"]
+            _profile(False)
             log(f"setup {setup_s:.2f} s; prove {prove_s:.2f} s; verify {verify_s:.2f} s; "
                 f"launches {launches}")
             log("prove phases (ms, both curves): " + json.dumps(phases))
@@ -1329,7 +1336,7 @@ def compress(args, torch, dev, pp, rs) -> dict:
     finally:
         dsc.DeviceSumcheck.cubic_eq_round = real_round
         del S.sample_random_instance_witness
-        os.environ.pop("NOVA_PROFILE", None)
+        _profile(False)
 
     k1_err = kernel_vs_plain(torch, "mont_mul", k1["mont_mul"])
     k1_rows = list(first_input(k1["mont_mul"]).shape)
@@ -1422,7 +1429,7 @@ def mercury_compression(args, torch, pp, rs, z0) -> dict:
         finally:
             inside.pop()
 
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     msm2.msm_device2 = recording_msm
     Mercury.prove = staticmethod(recording_prove)
     _build.reset_launches()
@@ -1443,7 +1450,7 @@ def mercury_compression(args, torch, pp, rs, z0) -> dict:
         launches = dict(_build.LAUNCHES)
     finally:
         msm2.msm_device2, Mercury.prove = real_msm, staticmethod(real_prove)
-        os.environ.pop("NOVA_PROFILE", None)
+        _profile(False)
     if out != list(rs.zi):
         raise PhaseError(f"Mercury compressed verify returned {out}, expected {rs.zi}")
     log(f"Mercury compression: setup {setup_s:.2f} s, prove {prove_s:.2f} s, verify "
@@ -1548,7 +1555,7 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
         raise PhaseError(f"primary {pp.num_constraints()[0]} constraints, "
                          f"key {len(pp.ck_primary)}: 2^{log_cons} expected")
 
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     run = drive_steps(torch, pp, circuit, KZG_STEPS, squares, bn254.scalar.p)
     rs, z0, step_s = run["rs"], run["z0"], run["step_s"]
     step_launches, step_phases = run["step_launches"], run["step_phases"]
@@ -1571,7 +1578,7 @@ def kzg_path(args, torch, dev, workers: int) -> dict:
     cverify_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     compress_launches = launch_delta(_build, before)
-    del os.environ["NOVA_PROFILE"]
+    _profile(False)
     if cout != list(rs.zi):
         raise PhaseError(f"compressed verify returned {cout}, expected {rs.zi}")
     log(f"compression (HyperKZG primary, IPA secondary): setup {csetup_s:.2f} s, prove "
@@ -1684,7 +1691,7 @@ def ppsnark_path(args, torch, dev, workers: int, kzg: dict) -> dict:
         precomputes.append((c, int(bx.shape[0]), W))
         return real_pre(tf, c, W, bx, *a)
 
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     msm2._precompute_shifted = recording_pre
     try:
         with outer_sumchecks(torch) as outer:
@@ -1709,7 +1716,7 @@ def ppsnark_path(args, torch, dev, workers: int, kzg: dict) -> dict:
             compress_launches = launch_delta(_build, before)
     finally:
         msm2._precompute_shifted = real_pre
-        os.environ.pop("NOVA_PROFILE", None)
+        _profile(False)
         constants.DEVICE_THRESHOLD = saved_threshold
     if cout != list(rs.zi):
         raise PhaseError(f"ppsnark compressed verify returned {cout}, expected {rs.zi}")
@@ -1960,9 +1967,9 @@ def sha256_path(args, torch, dev, workers: int) -> dict:
     if not args.rehearse and cons < constants.DEVICE_THRESHOLD:
         raise PhaseError(f"the SHA-256 primary has {cons} constraints, under DEVICE_THRESHOLD")
 
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     run = drive_steps(torch, pp, circuit, SHA_STEPS, 0, pallas.scalar.p)
-    del os.environ["NOVA_PROFILE"]
+    _profile(False)
     launches = dict(_build.LAUNCHES)
     rs, step_launches, step_phases = run["rs"], run["step_launches"], run["step_phases"]
     got = 0
@@ -2072,7 +2079,7 @@ def neutron_path(args, torch, dev) -> dict:
 
     z0 = [2]
     p = pallas.scalar.p
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     _build.reset_launches()
     t0 = time.perf_counter()
     rs = RecursiveSNARK.new(pp, circuit, z0)
@@ -2088,7 +2095,7 @@ def neutron_path(args, torch, dev) -> dict:
         step_s.append(time.perf_counter() - t0)
         step_phases.append({k: v * 1e3 for k, v in profiling._GLOBAL.totals.items()})
         step_launches.append(launch_delta(_build, before))
-    del os.environ["NOVA_PROFILE"]
+    _profile(False)
     t0 = time.perf_counter()
     out = rs.verify(pp, NEUTRON_STEPS, z0)
     sync(torch)
@@ -2410,7 +2417,7 @@ def mesh_path(args, torch, dev, ck, v, host_point, fold) -> dict:
 
     steps = {label: {"ms": [], "launches": None, "phase_ms": None} for label in copies}
     real_rand = secrets.randbelow
-    os.environ["NOVA_PROFILE"] = "1"
+    _profile(True)
     parallel.msm_sharded = counted
     try:
         for k in range(2):  # the copy's first step builds its tape, its second replays it
@@ -2436,7 +2443,7 @@ def mesh_path(args, torch, dev, ck, v, host_point, fold) -> dict:
     finally:
         parallel.msm_sharded = real_shard
         secrets.randbelow = real_rand
-        del os.environ["NOVA_PROFILE"]
+        _profile(False)
     meshed = copies["meshed"]
     p = pallas.scalar.p
     want = [pow(2, pow(2, fold["squares"] * meshed.i, p - 1), p)]

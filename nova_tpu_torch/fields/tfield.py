@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nova_tpu_torch import profiling
 from nova_tpu_torch.fields import kernels
 from nova_tpu_torch.fields.spec import NUM_LIMBS, FieldSpec, to_limbs
 
@@ -72,6 +73,7 @@ class TField:
         """Python ints (standard form) -> (N, 16) int32 numpy limbs (still
         standard form; call to_mont for compute)."""
         n = len(values)
+        profiling.count("conv.to_device", n)
         buf = b"".join(int(v).to_bytes(32, "little") for v in values)
         u16 = np.frombuffer(buf, dtype="<u2").reshape(n, NUM_LIMBS)
         return u16.astype(np.int32)
@@ -81,6 +83,7 @@ class TField:
         if isinstance(arr, torch.Tensor):
             arr = arr.detach().cpu().numpy()
         a = np.asarray(arr).astype(np.uint16)
+        profiling.count("conv.to_host", a.shape[0])
         return [
             int.from_bytes(row.astype("<u2").tobytes(), "little") for row in a
         ]

@@ -450,10 +450,11 @@ class RecursiveSNARK:
                 pp.r1cs_shape_primary, pp.ck_primary
             )
         if replayed_primary and _tape_validate_now(self.i):
-            _validate_replayed_witness(
-                pp.r1cs_shape_primary, l_u_primary, l_w_primary, "primary",
-                pp.ck_primary.device,
-            )
+            with profiling.phase("ivc.validate_witness"):
+                _validate_replayed_witness(
+                    pp.r1cs_shape_primary, l_u_primary, l_w_primary, "primary",
+                    pp.ck_primary.device,
+                )
 
         # fold the primary circuit's instance
         with profiling.phase("nifs_primary"):
@@ -497,10 +498,11 @@ class RecursiveSNARK:
                 pp.r1cs_shape_secondary, pp.ck_secondary
             )
         if replayed_secondary and _tape_validate_now(self.i):
-            _validate_replayed_witness(
-                pp.r1cs_shape_secondary, l_u_secondary, l_w_secondary,
-                "secondary", pp.ck_secondary.device,
-            )
+            with profiling.phase("ivc.validate_witness"):
+                _validate_replayed_witness(
+                    pp.r1cs_shape_secondary, l_u_secondary, l_w_secondary,
+                    "secondary", pp.ck_secondary.device,
+                )
 
         self.zi = zi_primary_vals
         self.l_u_secondary = l_u_secondary

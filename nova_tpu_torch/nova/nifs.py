@@ -17,6 +17,7 @@ import secrets
 from dataclasses import dataclass
 from typing import Tuple
 
+from nova_tpu_torch import profiling
 from nova_tpu_torch.constants import NUM_CHALLENGE_BITS
 from nova_tpu_torch.provider.engines import Engine
 from nova_tpu_torch.provider.pedersen import Commitment, CommitmentKey
@@ -45,16 +46,19 @@ class NIFS:
         W2: R1CSWitness,
         r_T: int = None,
     ) -> Tuple["NIFS", Tuple[RelaxedR1CSInstance, RelaxedR1CSWitness]]:
-        ro = engine.new_ro()
-        ro.absorb(pp_digest)
-        U2.absorb_in_ro(ro)
+        with profiling.phase("nifs.ro"):
+            ro = engine.new_ro()
+            ro.absorb(pp_digest)
+            U2.absorb_in_ro(ro)
         if r_T is None:
             r_T = secrets.randbelow(engine.scalar.p)
         T, comm_T = S.commit_T(ck, U1, W1, U2, W2, r_T)
-        comm_T.absorb_in_ro(ro)
-        r = ro.squeeze(NUM_CHALLENGE_BITS)
-        U = U1.fold(engine.scalar, U2, comm_T, r)
-        W = W1.fold(engine.scalar, W2, T, r_T, r)
+        with profiling.phase("nifs.ro"):
+            comm_T.absorb_in_ro(ro)
+            r = ro.squeeze(NUM_CHALLENGE_BITS)
+        with profiling.phase("nifs.fold"):
+            U = U1.fold(engine.scalar, U2, comm_T, r)
+            W = W1.fold(engine.scalar, W2, T, r_T, r)
         return NIFS(comm_T), (U, W)
 
     def verify(
@@ -88,17 +92,20 @@ class NIFSRelaxed:
         W2: RelaxedR1CSWitness,
         r_T: int = None,
     ) -> Tuple["NIFSRelaxed", Tuple[RelaxedR1CSInstance, RelaxedR1CSWitness]]:
-        ro = engine.new_ro()
-        ro.absorb(pp_digest)
-        U1.absorb_in_ro(ro)
-        U2.absorb_in_ro(ro)
+        with profiling.phase("nifs.ro"):
+            ro = engine.new_ro()
+            ro.absorb(pp_digest)
+            U1.absorb_in_ro(ro)
+            U2.absorb_in_ro(ro)
         if r_T is None:
             r_T = secrets.randbelow(engine.scalar.p)
         T, comm_T = S.commit_T_relaxed(ck, U1, W1, U2, W2, r_T)
-        comm_T.absorb_in_ro(ro)
-        r = ro.squeeze(NUM_CHALLENGE_BITS)
-        U = U1.fold_relaxed(engine.scalar, U2, comm_T, r)
-        W = W1.fold_relaxed(engine.scalar, W2, T, r_T, r)
+        with profiling.phase("nifs.ro"):
+            comm_T.absorb_in_ro(ro)
+            r = ro.squeeze(NUM_CHALLENGE_BITS)
+        with profiling.phase("nifs.fold"):
+            U = U1.fold_relaxed(engine.scalar, U2, comm_T, r)
+            W = W1.fold_relaxed(engine.scalar, W2, T, r_T, r)
         return NIFSRelaxed(comm_T), (U, W)
 
     def verify(

@@ -14,6 +14,7 @@ from typing import List, Sequence, Union
 import numpy as np
 import torch
 
+from nova_tpu_torch import profiling
 from nova_tpu_torch._device import resolve
 from nova_tpu_torch.fields.spec import NUM_LIMBS, FieldSpec
 from nova_tpu_torch.fields.tfield import TField
@@ -80,6 +81,7 @@ class FVec:
             from nova_tpu_torch import native
 
             if native.available():
+                profiling.count("conv.to_host", len(self))
                 self._ints = native.limbs_to_ints(self.limbs64())
             else:
                 self._ints = self.tf.unpack(self._std())

@@ -31,7 +31,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from nova_tpu_torch import _build
+from nova_tpu_torch import _build, profiling
 from nova_tpu_torch._device import on_cuda, resolve
 from nova_tpu_torch.curves.points import xyzz_double
 from nova_tpu_torch.fields import kernels
@@ -513,6 +513,7 @@ def _msm2_program(tf: TField, c: int, limbs, bx, by, binf):
 
 def _scalar_limbs(scalars, n_pad: int) -> np.ndarray:
     """(n_pad, 16) int32 16-bit limbs of the scalars; pad rows are 0."""
+    profiling.count("conv.to_device", len(scalars))
     limbs = np.zeros((n_pad, NUM_LIMBS), dtype=np.int32)
     if len(scalars):
         buf = b"".join(int(s).to_bytes(32, "little") for s in scalars)
@@ -554,20 +555,27 @@ def msm_device2(scalars: Sequence[int], bases=None,
     curve = device_bases.curve
     tf = TField(curve.base)
     n_pad = max(512, _next_pow2(n))
-    limbs = torch.from_numpy(_scalar_limbs(scalars, n_pad)).to(device_bases.x.device)
+    with profiling.phase("msm.marshal"):
+        limbs = torch.from_numpy(_scalar_limbs(scalars, n_pad)).to(device_bases.x.device)
     if window is None:
         window = _window_for(n_pad)
     if not 2 <= window <= 17:
         raise ValueError(f"window must be in 2..17, got {window}")
 
     if reuse:
+        profiling.count("msm.calls")
         fixed = device_bases.fixed(window, n_pad)
-        out, flag = _msm2_fixed_program(tf, window, limbs, fixed, "fast0")
-        if bool(flag.item()):
-            # a degenerate (P = +-Q) fast add was flagged: rerun with the
-            # complete formulas (never taken for distinct bases)
-            out, _ = _msm2_fixed_program(tf, window, limbs, fixed, "complete")
-        return _xyzz_row_to_affine(curve, {k: v.cpu() for k, v in out.items()})
+        with profiling.phase("msm.dispatch"):
+            out, flag = _msm2_fixed_program(tf, window, limbs, fixed, "fast0")
+        with profiling.phase("msm.read"):
+            if bool(flag.item()):
+                # a degenerate (P = +-Q) fast add was flagged: rerun with the
+                # complete formulas (never taken for distinct bases)
+                profiling.count("msm.reruns")
+                with profiling.phase("msm.rerun"):
+                    out, _ = _msm2_fixed_program(tf, window, limbs, fixed, "complete")
+            out = {k: v.cpu() for k, v in out.items()}
+        return _xyzz_row_to_affine(curve, out)
 
     bx, by, binf = _sized(device_bases, n_pad)
     wins = {k: v.cpu() for k, v in _msm2_program(tf, window, limbs, bx, by, binf).items()}

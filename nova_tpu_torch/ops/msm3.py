@@ -40,7 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from nova_tpu_torch import _build
+from nova_tpu_torch import _build, profiling
 from nova_tpu_torch._device import on_cuda
 from nova_tpu_torch.curves.points import xyzz_add
 from nova_tpu_torch.fields.kernels import (
@@ -541,7 +541,8 @@ def _bucket_totals(tf: TField, sorted_d, tail1: dict, colend: dict, grid, nb: in
 def _msm3_dispatch(bf: TField, sorted_d, st, c: int):
     """Queue accumulate + finish without waiting for the device; returns a
     handle for _msm3_collect (lets a batch queue every MSM first)."""
-    out, flag = _msm3_finish(bf, sorted_d, st, c, "fast")
+    with profiling.phase("msm.dispatch"):
+        out, flag = _msm3_finish(bf, sorted_d, st, c, "fast")
     return (bf, sorted_d, st, c, out, flag)
 
 
@@ -565,23 +566,28 @@ def _msm3_collect(pending):
     """Wait for a dispatched MSM; rerun K4 in complete mode (reusing the
     sort) when a degenerate fast add was flagged."""
     bf, sorted_d, st, c, out, flag = pending
-    if bool(flag.item()):
-        out, _ = _msm3_finish(bf, sorted_d, st, c, "complete")
-    return {k: v.cpu() for k, v in out.items()}
+    profiling.count("msm.calls")
+    with profiling.phase("msm.read"):
+        if bool(flag.item()):
+            profiling.count("msm.reruns")
+            with profiling.phase("msm.rerun"):
+                out, _ = _msm3_finish(bf, sorted_d, st, c, "complete")
+        return {k: v.cpu() for k, v in out.items()}
 
 
 def _prep_mont(db: DeviceBases2, marr, c: int, W: int):
     """(n, 16) Montgomery scalars -> padded (sorted_d, st)."""
-    sf = TField(db.curve.scalar)
-    n = int(marr.shape[0])
-    n_pad = max(512, _next_pow2(n))
-    if n_pad != n:
-        marr = torch.cat([marr, marr.new_zeros((n_pad - n, NUM_LIMBS))])
-    fx, fy, fyneg, finf = _windowed(db, c, n_pad, W)
-    sabs, negs = _sym_reduce_device(sf, sf.from_mont(marr))
-    u = add_offset_device(sabs, c, W)
-    d = offset_digits_device(u, c, W, negs).reshape(W * n_pad)
-    return _sortpack(d, fx, fy, fyneg, finf)
+    with profiling.phase("msm.prep"):
+        sf = TField(db.curve.scalar)
+        n = int(marr.shape[0])
+        n_pad = max(512, _next_pow2(n))
+        if n_pad != n:
+            marr = torch.cat([marr, marr.new_zeros((n_pad - n, NUM_LIMBS))])
+        fx, fy, fyneg, finf = _windowed(db, c, n_pad, W)
+        sabs, negs = _sym_reduce_device(sf, sf.from_mont(marr))
+        u = add_offset_device(sabs, c, W)
+        d = offset_digits_device(u, c, W, negs).reshape(W * n_pad)
+        return _sortpack(d, fx, fy, fyneg, finf)
 
 
 def _windowed(db: DeviceBases2, c: int, n_pad: int, W: int):

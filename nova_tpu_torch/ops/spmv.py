@@ -14,6 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from nova_tpu_torch import profiling
 from nova_tpu_torch._device import resolve
 from nova_tpu_torch.fields.spec import NUM_LIMBS
 from nova_tpu_torch.fields.tfield import TField
@@ -58,16 +59,17 @@ def get_device_csr(shape, which: str, device) -> DeviceCSR:
 def multiply_vec_device(shape, z: Sequence[int], device=None):
     """Az, Bz, Cz for a shape, computed on `device` (CUDA unless given);
     returns three int lists of num_cons entries."""
-    dev = resolve(device)
-    tf = TField(shape.field)
-    zm = tf.to_mont(torch.from_numpy(tf.pack([int(x) for x in z])).to(dev))
-    outs = []
-    for which in ("A", "B", "C"):
-        csr = get_device_csr(shape, which, dev)
-        if csr.empty:
-            outs.append([0] * shape.num_cons)
-            continue
-        vals = tf.unpack(tf.from_mont(spmv_m(tf, csr, zm)))
-        vals += [0] * (shape.num_cons - len(vals))
-        outs.append(vals)
-    return tuple(outs)
+    with profiling.phase("spmv"):
+        dev = resolve(device)
+        tf = TField(shape.field)
+        zm = tf.to_mont(torch.from_numpy(tf.pack([int(x) for x in z])).to(dev))
+        outs = []
+        for which in ("A", "B", "C"):
+            csr = get_device_csr(shape, which, dev)
+            if csr.empty:
+                outs.append([0] * shape.num_cons)
+                continue
+            vals = tf.unpack(tf.from_mont(spmv_m(tf, csr, zm)))
+            vals += [0] * (shape.num_cons - len(vals))
+            outs.append(vals)
+        return tuple(outs)

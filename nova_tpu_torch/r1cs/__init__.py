@@ -21,7 +21,7 @@ import secrets
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
-from nova_tpu_torch import constants, native
+from nova_tpu_torch import constants, native, profiling
 from nova_tpu_torch.constants import BN_LIMB_WIDTH, BN_N_LIMBS
 from nova_tpu_torch.errors import (
     InvalidIndexError,
@@ -283,63 +283,73 @@ class R1CSShape:
         from nova_tpu_torch.ops.fvec import HVec
 
         p = self.field.p
-        Wsum = native.vec_addmod_l(p, _vec_limbs(W1.W, p), _vec_limbs(W2.W, p))
-        tail = [u] + [(x1 + x2) % p for x1, x2 in zip(U1.X, U2.X)]
-        Az, Bz, Cz = self.multiply_vec_l(np.vstack([Wsum, native.ints_to_limbs(tail)]))
-        E = _vec_limbs(W1.E, p)
-        if E2 is not None:
-            E = native.vec_addmod_l(p, E, _vec_limbs(E2, p))
-        Tl = native.vec_cross_l(p, Az, Bz, Cz, E, u)
-        return HVec(p, limbs=Tl), CommitmentEngine.commit_limbs(ck, Tl, r_T)
+        with profiling.phase("nifs.cross_term"):
+            Wsum = native.vec_addmod_l(p, _vec_limbs(W1.W, p), _vec_limbs(W2.W, p))
+            tail = [u] + [(x1 + x2) % p for x1, x2 in zip(U1.X, U2.X)]
+            Az, Bz, Cz = self.multiply_vec_l(np.vstack([Wsum, native.ints_to_limbs(tail)]))
+            E = _vec_limbs(W1.E, p)
+            if E2 is not None:
+                E = native.vec_addmod_l(p, E, _vec_limbs(E2, p))
+            Tl = native.vec_cross_l(p, Az, Bz, Cz, E, u)
+        with profiling.phase("nifs.commit_T"):
+            return HVec(p, limbs=Tl), CommitmentEngine.commit_limbs(ck, Tl, r_T)
 
     # --- folding cross-term (src/r1cs/mod.rs:533-619, Mova §5.2 trick) ---
     def commit_T(self, ck, U1, W1, U2, W2, r_T):
         if self._fold_on_device():
             from nova_tpu_torch.ops.fold import commit_T_device
 
-            T = commit_T_device(self, U1, W1, U2, W2, False, ck.device)
-            return T, CommitmentEngine.commit(ck, T, r_T)
+            with profiling.phase("nifs.cross_term"):
+                T = commit_T_device(self, U1, W1, U2, W2, False, ck.device)
+            with profiling.phase("nifs.commit_T"):
+                return T, CommitmentEngine.commit(ck, T, r_T)
         p = self.field.p
         if self._host_native():
             return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + 1) % p)
         from nova_tpu_torch.ops.fvec import as_list
 
-        W1W, W2W, W1E = as_list(W1.W), as_list(W2.W), as_list(W1.E)
-        Z = [(w1 + w2) % p for w1, w2 in zip(W1W, W2W)]
-        Z.append((U1.u + 1) % p)
-        Z.extend((x1 + x2) % p for x1, x2 in zip(U1.X, U2.X))
-        u = (U1.u + 1) % p
-        AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
-        T = [
-            (az * bz - u * cz - e) % p
-            for az, bz, cz, e in zip(AZ, BZ, CZ, W1E)
-        ]
-        comm_T = CommitmentEngine.commit(ck, T, r_T)
+        with profiling.phase("nifs.cross_term"):
+            W1W, W2W, W1E = as_list(W1.W), as_list(W2.W), as_list(W1.E)
+            Z = [(w1 + w2) % p for w1, w2 in zip(W1W, W2W)]
+            Z.append((U1.u + 1) % p)
+            Z.extend((x1 + x2) % p for x1, x2 in zip(U1.X, U2.X))
+            u = (U1.u + 1) % p
+            AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
+            T = [
+                (az * bz - u * cz - e) % p
+                for az, bz, cz, e in zip(AZ, BZ, CZ, W1E)
+            ]
+        with profiling.phase("nifs.commit_T"):
+            comm_T = CommitmentEngine.commit(ck, T, r_T)
         return T, comm_T
 
     def commit_T_relaxed(self, ck, U1, W1, U2, W2, r_T):
         if self._fold_on_device():
             from nova_tpu_torch.ops.fold import commit_T_device
 
-            T = commit_T_device(self, U1, W1, U2, W2, True, ck.device)
-            return T, CommitmentEngine.commit(ck, T, r_T)
+            with profiling.phase("nifs.cross_term"):
+                T = commit_T_device(self, U1, W1, U2, W2, True, ck.device)
+            with profiling.phase("nifs.commit_T"):
+                return T, CommitmentEngine.commit(ck, T, r_T)
         p = self.field.p
         if self._host_native():
             return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + U2.u) % p, W2.E)
         from nova_tpu_torch.ops.fvec import as_list
 
-        W1W, W2W = as_list(W1.W), as_list(W2.W)
-        W1E, W2E = as_list(W1.E), as_list(W2.E)
-        Z = [(w1 + w2) % p for w1, w2 in zip(W1W, W2W)]
-        Z.append((U1.u + U2.u) % p)
-        Z.extend((x1 + x2) % p for x1, x2 in zip(U1.X, U2.X))
-        u = (U1.u + U2.u) % p
-        AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
-        T = [
-            (az * bz - u * cz - e1 - e2) % p
-            for az, bz, cz, e1, e2 in zip(AZ, BZ, CZ, W1E, W2E)
-        ]
-        comm_T = CommitmentEngine.commit(ck, T, r_T)
+        with profiling.phase("nifs.cross_term"):
+            W1W, W2W = as_list(W1.W), as_list(W2.W)
+            W1E, W2E = as_list(W1.E), as_list(W2.E)
+            Z = [(w1 + w2) % p for w1, w2 in zip(W1W, W2W)]
+            Z.append((U1.u + U2.u) % p)
+            Z.extend((x1 + x2) % p for x1, x2 in zip(U1.X, U2.X))
+            u = (U1.u + U2.u) % p
+            AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
+            T = [
+                (az * bz - u * cz - e1 - e2) % p
+                for az, bz, cz, e1, e2 in zip(AZ, BZ, CZ, W1E, W2E)
+            ]
+        with profiling.phase("nifs.commit_T"):
+            comm_T = CommitmentEngine.commit(ck, T, r_T)
         return T, comm_T
 
     # --- padding (src/r1cs/mod.rs:623-738) ---
