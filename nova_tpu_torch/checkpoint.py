@@ -70,7 +70,7 @@ def load_recursive_snark(path: str, pp):
     for name, engine, ck in (("r_W_primary", pp.engine1, pp.ck_primary),
                              ("r_W_secondary", pp.engine2, pp.ck_secondary)):
         W = getattr(rs, name)
-        if W._dev_fold(engine.scalar):
+        if W._dev_fold():
             tf = TField(engine.scalar)
             W.W = FVec.coerce(tf, W.W, ck.device)
             W.E = FVec.coerce(tf, W.E, ck.device)

@@ -22,8 +22,8 @@ BN_N_LIMBS = 4
 DEVICE_THRESHOLD = int(_os.environ.get("NOVA_DEVICE_THRESHOLD", str(1 << 16)))
 
 # Length at or above which a relaxed witness folds on the device (FVec
-# axpy) and, for a square shape, the cross-term T is computed there
-# (ops/fold.commit_T_device).
+# axpy), and row count at or above which a shape's cross-term T is computed
+# there (ops/fold.commit_T_device), whether the shape is square or not.
 FOLD_DEVICE_THRESHOLD = int(
     _os.environ.get("NOVA_FOLD_DEVICE_THRESHOLD", str(1 << 16))
 )

@@ -9,7 +9,11 @@ field (base_as_scalar, 128-bit challenges; src/nova/nifs.rs:36-107).
 U1 is NOT absorbed in the plain variant: the IVC wiring guarantees
 U2.X[0] = H(params, U1, i, z0, zi), binding U1 transitively
 (src/nova/nifs.rs:31-35). The relaxed variant absorbs both (used when
-folding the ZK randomizer instance)."""
+folding the ZK randomizer instance).
+
+Both take the cross-term from ``R1CSShape.cross_term``, which hands back the
+incoming witness as the witness fold should read it: for a shape of at least
+FOLD_DEVICE_THRESHOLD rows, with its vectors on the device, converted once."""
 
 from __future__ import annotations
 
@@ -52,7 +56,7 @@ class NIFS:
             U2.absorb_in_ro(ro)
         if r_T is None:
             r_T = secrets.randbelow(engine.scalar.p)
-        T, comm_T = S.commit_T(ck, U1, W1, U2, W2, r_T)
+        T, comm_T, W2 = S.cross_term(ck, U1, W1, U2, W2, r_T, relaxed=False)
         with profiling.phase("nifs.ro"):
             comm_T.absorb_in_ro(ro)
             r = ro.squeeze(NUM_CHALLENGE_BITS)
@@ -99,7 +103,7 @@ class NIFSRelaxed:
             U2.absorb_in_ro(ro)
         if r_T is None:
             r_T = secrets.randbelow(engine.scalar.p)
-        T, comm_T = S.commit_T_relaxed(ck, U1, W1, U2, W2, r_T)
+        T, comm_T, W2 = S.cross_term(ck, U1, W1, U2, W2, r_T, relaxed=True)
         with profiling.phase("nifs.ro"):
             comm_T.absorb_in_ro(ro)
             r = ro.squeeze(NUM_CHALLENGE_BITS)

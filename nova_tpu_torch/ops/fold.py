@@ -4,11 +4,14 @@
 ``commit_T_device`` computes T = Az o Bz - u*Cz - E on the folded
 Z = W1 + W2 || u || X1 + X2 with one SpMV per matrix (the Mova single-SpMV
 trick) from Montgomery device inputs, and returns T as an FVec on the
-device; ``r1cs`` routes here for regular (square) shapes.
+device. ``r1cs`` routes the cross-term of every shape of at least
+FOLD_DEVICE_THRESHOLD rows here, square or not, after ``witness_on_device``
+has put the incoming witness on the card once for the whole fold.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence, Tuple
 
 import torch
@@ -31,6 +34,26 @@ def fold_witness_device(field: FieldSpec, W1: Sequence[int], W2: Sequence[int],
     return W.to_ints(), E.to_ints()
 
 
+def fold_device(W1, device=None) -> torch.device:
+    """The device a fold into the running witness W1 runs on: that of W1.W
+    when it is an FVec, else `device` (CUDA unless given)."""
+    from nova_tpu_torch.ops.fvec import FVec
+
+    return W1.W.device if isinstance(W1.W, FVec) else resolve(device)
+
+
+def witness_on_device(field: FieldSpec, W, device):
+    """W (an R1CSWitness or a RelaxedR1CSWitness) with its vectors as FVecs
+    on `device`; a vector that is an FVec already is kept as it is."""
+    from nova_tpu_torch.ops.fvec import FVec
+
+    tf = TField(field)
+    vecs = {"W": FVec.coerce(tf, W.W, device)}
+    if hasattr(W, "E"):
+        vecs["E"] = FVec.coerce(tf, W.E, device)
+    return dataclasses.replace(W, **vecs)
+
+
 def commit_T_device(shape, U1, W1, U2, W2, relaxed: bool, device=None):
     """Device-resident cross-term for plain (U2.u == 1, E2 == 0) or relaxed
     folding. Returns T as an FVec on `device` (CUDA unless given, or the
@@ -41,7 +64,7 @@ def commit_T_device(shape, U1, W1, U2, W2, relaxed: bool, device=None):
 
     tf = TField(shape.field)
     p = shape.field.p
-    dev = W1.W.device if isinstance(W1.W, FVec) else resolve(device)
+    dev = fold_device(W1, device)
     W1v = FVec.coerce(tf, W1.W, dev)
     W2v = FVec.coerce(tf, W2.W, dev)
     E1v = FVec.coerce(tf, W1.E, dev)

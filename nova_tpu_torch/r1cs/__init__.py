@@ -5,11 +5,14 @@ Vectors are Python-int lists or device-resident FVecs at this level; the
 heavy lifting (SpMV over big shapes, commitments, folds over long vectors)
 goes to :mod:`nova_tpu_torch.ops` at or above DEVICE_THRESHOLD /
 FOLD_DEVICE_THRESHOLD, on the commitment key's device (or the device of the
-FVecs folded). Below DEVICE_THRESHOLD the satisfiability checks and the
-cross-term run in the native host binding on limb arrays, as in the JAX
-package; without the binding they keep its pure-Python branches. At or
-above it they keep the device SpMV and the device MSM, also for a shape
-that is not square (the JAX package runs those natively on the host).
+FVecs folded). At or above FOLD_DEVICE_THRESHOLD rows a fold's cross-term
+is computed on the device, square shape or not, and its vectors stay there
+from the cross-term to the folded witness (the JAX package computes a
+non-square cross-term natively on the host). Below DEVICE_THRESHOLD the
+satisfiability checks and the cross-term run in the native host binding on
+limb arrays, as in the JAX package; without the binding they keep its
+pure-Python branches. At or above it the satisfiability checks keep the
+device SpMV and the device MSM, also for a shape that is not square.
 
 z layout everywhere: z = [W (num_vars), u, X (num_io)]
 (src/r1cs/mod.rs:459,504).
@@ -269,10 +272,10 @@ class R1CSShape:
             raise UnSatError("Invalid commitment")
 
     def _fold_on_device(self) -> bool:
-        return (
-            self.num_cons >= constants.FOLD_DEVICE_THRESHOLD
-            and self.num_cons == self.num_vars  # regular padded shape
-        )
+        """The cross-term runs on the device (ops/fold.commit_T_device) at or
+        above FOLD_DEVICE_THRESHOLD rows, whether the shape is square or
+        not."""
+        return self.num_cons >= constants.FOLD_DEVICE_THRESHOLD
 
     def _commit_T_limbs(self, ck, U1, W1, U2, W2, r_T, u: int, E2=None):
         """Host-native cross-term T = Az*Bz - u*Cz - E (E = W1.E, plus W2.E
@@ -295,62 +298,56 @@ class R1CSShape:
             return HVec(p, limbs=Tl), CommitmentEngine.commit_limbs(ck, Tl, r_T)
 
     # --- folding cross-term (src/r1cs/mod.rs:533-619, Mova §5.2 trick) ---
-    def commit_T(self, ck, U1, W1, U2, W2, r_T):
-        if self._fold_on_device():
-            from nova_tpu_torch.ops.fold import commit_T_device
+    def cross_term(self, ck, U1, W1, U2, W2, r_T, relaxed: bool):
+        """(T, comm_T, W2) for folding (U2, W2) into (U1, W1): T = Az*Bz -
+        u*Cz - E1 (- E2 when relaxed) on Z = [W1.W + W2.W, u, U1.X + U2.X],
+        u = U1.u + 1 (U1.u + U2.u when relaxed), and W2 as the witness fold
+        should read it.
 
-            with profiling.phase("nifs.cross_term"):
-                T = commit_T_device(self, U1, W1, U2, W2, False, ck.device)
-            with profiling.phase("nifs.commit_T"):
-                return T, CommitmentEngine.commit(ck, T, r_T)
+        At or above FOLD_DEVICE_THRESHOLD rows T is computed on the device
+        and is an FVec; W2's vectors cross to the device once, here, and the
+        W2 returned holds them as FVecs, so the fold does not convert them
+        again. Otherwise W2 comes back as given: below DEVICE_THRESHOLD T is
+        computed by the native binding on limbs (an HVec), else on int lists
+        (around the device SpMV at or above DEVICE_THRESHOLD)."""
         p = self.field.p
+        u = (U1.u + (U2.u if relaxed else 1)) % p
+        if self._fold_on_device():
+            from nova_tpu_torch.ops.fold import commit_T_device, fold_device, witness_on_device
+
+            profiling.count("nifs.cross_term_rows.device", self.num_cons)
+            with profiling.phase("nifs.cross_term"):
+                W2 = witness_on_device(self.field, W2, fold_device(W1, ck.device))
+                T = commit_T_device(self, U1, W1, U2, W2, relaxed, ck.device)
+            with profiling.phase("nifs.commit_T"):
+                return T, CommitmentEngine.commit(ck, T, r_T), W2
+        profiling.count("nifs.cross_term_rows.host", self.num_cons)
         if self._host_native():
-            return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + 1) % p)
+            T, comm_T = self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, u,
+                                             W2.E if relaxed else None)
+            return T, comm_T, W2
         from nova_tpu_torch.ops.fvec import as_list
 
         with profiling.phase("nifs.cross_term"):
-            W1W, W2W, W1E = as_list(W1.W), as_list(W2.W), as_list(W1.E)
-            Z = [(w1 + w2) % p for w1, w2 in zip(W1W, W2W)]
-            Z.append((U1.u + 1) % p)
+            Z = [(w1 + w2) % p for w1, w2 in zip(as_list(W1.W), as_list(W2.W))]
+            Z.append(u)
             Z.extend((x1 + x2) % p for x1, x2 in zip(U1.X, U2.X))
-            u = (U1.u + 1) % p
             AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
-            T = [
-                (az * bz - u * cz - e) % p
-                for az, bz, cz, e in zip(AZ, BZ, CZ, W1E)
-            ]
+            E = as_list(W1.E)
+            if relaxed:
+                E = [e1 + e2 for e1, e2 in zip(E, as_list(W2.E))]
+            T = [(az * bz - u * cz - e) % p for az, bz, cz, e in zip(AZ, BZ, CZ, E)]
         with profiling.phase("nifs.commit_T"):
             comm_T = CommitmentEngine.commit(ck, T, r_T)
-        return T, comm_T
+        return T, comm_T, W2
+
+    def commit_T(self, ck, U1, W1, U2, W2, r_T):
+        """(T, comm_T) for folding a plain instance (U2.u = 1, no E2)."""
+        return self.cross_term(ck, U1, W1, U2, W2, r_T, False)[:2]
 
     def commit_T_relaxed(self, ck, U1, W1, U2, W2, r_T):
-        if self._fold_on_device():
-            from nova_tpu_torch.ops.fold import commit_T_device
-
-            with profiling.phase("nifs.cross_term"):
-                T = commit_T_device(self, U1, W1, U2, W2, True, ck.device)
-            with profiling.phase("nifs.commit_T"):
-                return T, CommitmentEngine.commit(ck, T, r_T)
-        p = self.field.p
-        if self._host_native():
-            return self._commit_T_limbs(ck, U1, W1, U2, W2, r_T, (U1.u + U2.u) % p, W2.E)
-        from nova_tpu_torch.ops.fvec import as_list
-
-        with profiling.phase("nifs.cross_term"):
-            W1W, W2W = as_list(W1.W), as_list(W2.W)
-            W1E, W2E = as_list(W1.E), as_list(W2.E)
-            Z = [(w1 + w2) % p for w1, w2 in zip(W1W, W2W)]
-            Z.append((U1.u + U2.u) % p)
-            Z.extend((x1 + x2) % p for x1, x2 in zip(U1.X, U2.X))
-            u = (U1.u + U2.u) % p
-            AZ, BZ, CZ = self.multiply_vec(Z, ck.device)
-            T = [
-                (az * bz - u * cz - e1 - e2) % p
-                for az, bz, cz, e1, e2 in zip(AZ, BZ, CZ, W1E, W2E)
-            ]
-        with profiling.phase("nifs.commit_T"):
-            comm_T = CommitmentEngine.commit(ck, T, r_T)
-        return T, comm_T
+        """(T, comm_T) for folding a relaxed instance."""
+        return self.cross_term(ck, U1, W1, U2, W2, r_T, True)[:2]
 
     # --- padding (src/r1cs/mod.rs:623-738) ---
     def _apply_pad(self, M: SparseMatrix, num_vars_padded: int, num_cons_padded: int) -> SparseMatrix:
@@ -509,11 +506,13 @@ class RelaxedR1CSWitness:
             CommitmentEngine.commit(ck, self.E, self.r_E),
         )
 
-    def _dev_fold(self, field: FieldSpec) -> bool:
+    def _dev_fold(self, *others) -> bool:
+        """The fold runs on the device: for a long witness, or where it or
+        one of the vectors folded in (W2's, T) is an FVec already."""
         from nova_tpu_torch.ops.fvec import FVec
 
         return (
-            isinstance(self.W, FVec)
+            any(isinstance(v, FVec) for v in (self.W, *others))
             or len(self.W) >= constants.FOLD_DEVICE_THRESHOLD
         )
 
@@ -522,7 +521,7 @@ class RelaxedR1CSWitness:
         if len(self.W) != len(W2.W):
             raise InvalidWitnessLengthError()
         p = field.p
-        if self._dev_fold(field):
+        if self._dev_fold(W2.W, T):
             from nova_tpu_torch.fields.tfield import TField
             from nova_tpu_torch.ops.fvec import FVec
 
@@ -549,7 +548,7 @@ class RelaxedR1CSWitness:
             raise InvalidWitnessLengthError()
         p = field.p
         r2 = r * r % p
-        if self._dev_fold(field):
+        if self._dev_fold(W2.W, W2.E, T):
             from nova_tpu_torch.fields.tfield import TField
             from nova_tpu_torch.ops.fvec import FVec
 

@@ -38,11 +38,12 @@ from nova_tpu_torch.nova.nifs import NIFS as TNIFS
 from nova_tpu_torch.ops import msm2
 from nova_tpu_torch.ops.fold import commit_T_device, fold_witness_device
 from nova_tpu_torch.ops.fvec import FVec, as_list
-from nova_tpu_torch.ops.spmv import multiply_vec_device
+from nova_tpu_torch.ops.spmv import get_device_csr, multiply_vec_device
 from nova_tpu_torch.provider.engines import PallasEngine as TPE
 from nova_tpu_torch.provider.pedersen import CommitmentEngine as TCE
 
 from tests.test_nifs import tiny_r1cs
+from tests.test_torch_profiling import tracing  # noqa: F401  (a fixture)
 
 # One intra-op thread per test process: the plain versions issue many small
 # ops, and thread-pool contention slows those by orders of magnitude.
@@ -207,6 +208,56 @@ def test_nifs_fold_sequence_matches_reference(monkeypatch):
     bad.E[0] = (bad.E[0] + 1) % P
     with pytest.raises(Exception, match="unsatisfiable"):
         tS.is_sat_relaxed(tck, tU, bad)
+
+
+def test_nifs_folds_a_non_square_shape_on_the_device(monkeypatch, tracing):
+    """Three NIFS folds of random pairs into a running W and E held as
+    FVecs, on a 16 x 12 shape (not square) with both thresholds lowered to
+    its rows: each fold converts W2 and the short (u, X) tail towards the
+    device once and nothing back, counts its rows as the cross-term's device
+    rows, and gives the JAX package's comm_T, folded instance and folded W
+    and E (its native host route)."""
+    from nova_tpu_torch.provider.pedersen import Commitment
+
+    jS = _random_shape(23, rows=16, cols=12, nnz=120)
+    tS = port_shape(jS)
+    nv, nc, nio = tS.num_vars, tS.num_cons, tS.num_io
+    assert nc != nv
+    monkeypatch.setattr(constants, "DEVICE_THRESHOLD", nc)
+    monkeypatch.setattr(constants, "FOLD_DEVICE_THRESHOLD", nc)
+    jck = JCE.setup(JCURVE, b"port-fold-non-square", nc)
+    tck = port_key(jck)
+    # the reference's window-9 precompute for the port's CPU MSM of T
+    fx, fy, finf = jmsm3._fixed3_host(jck.device_bases2(nc), 9, 512)
+    interop.set_fixed(tck.device_bases2(nc), 9, 512, np.asarray(fx), np.asarray(fy),
+                      np.asarray(finf))
+    rng = np.random.default_rng(24)
+    comm = JCE.commit(jck, _rand(rng, 4))  # any commitment: T does not read it
+    tcomm = Commitment(AffinePoint(TCURVE, *_pt(comm)[:2]))
+    W1, E1, X1, (u1,) = _rand(rng, nv), _rand(rng, nc), _rand(rng, nio), _rand(rng, 1)
+    jU, jW = JRelaxedU(comm, comm, X1, u1), JRelaxedW(W1, 3, E1, 4)
+    tU = tr1cs.RelaxedR1CSInstance(tcomm, tcomm, X1, u1)
+    tW = tr1cs.RelaxedR1CSWitness(FVec.from_ints(TPE.scalar, W1, "cpu"), 3,
+                                  FVec.from_ints(TPE.scalar, E1, "cpu"), 4)
+    for which in "ABC":  # the matrices cross once a shape, before the folds
+        get_device_csr(tS, which, tW.W.device)
+    for i in range(3):
+        W2, X2 = _rand(rng, nv), _rand(rng, nio)
+        tracing.global_reset()
+        tn, (tU, tW) = TNIFS.prove(tck, TPE, 0x1234, tS, tU, tW,
+                                   tr1cs.R1CSInstance(tcomm, X2), tr1cs.R1CSWitness(W2, 5 + i),
+                                   r_T=77 + i)
+        c = tracing.counters()
+        jn, (jU, jW) = JNIFS.prove(jck, JPE, 0x1234, jS, jU, jW, JR1CSInstance(comm, X2),
+                                   JR1CSWitness(W2, 5 + i), r_T=77 + i)
+        assert (c["conv.to_device"], c.get("conv.to_host", 0)) == (nv + 1 + nio, 0)
+        assert c["nifs.cross_term_rows.device"] == nc
+        assert "nifs.cross_term_rows.host" not in c
+        assert isinstance(tW.W, FVec) and isinstance(tW.E, FVec)
+        assert _pt(tn.comm_T) == _pt(jn.comm_T)
+        assert _inst(tU) == _inst(jU)
+        assert (as_list(tW.W), as_list(tW.E)) == (list(jW.W), list(jW.E))
+        assert (tW.r_W, tW.r_E) == (jW.r_W, jW.r_E)
 
 
 def test_commit_int_list_takes_msm_device2(monkeypatch):

@@ -326,6 +326,37 @@ def test_cross_term_at_device_threshold(monkeypatch, keys, relaxed):
     assert cT.point.to_coordinates() == jcT.point.to_coordinates()
 
 
+@pytest.mark.parametrize("relaxed", [False, True])
+def test_cross_term_at_fold_threshold_on_a_non_square_shape(monkeypatch, keys, relaxed):
+    """At or above FOLD_DEVICE_THRESHOLD (both thresholds lowered to the
+    64 x 48 shape's rows) the cross-term of a shape that is not square runs
+    on the device: one commit_T_device, T an FVec committed by
+    msm_device3_mont, no int-list SpMV, msm_device2 or native cross-term;
+    T and its commitment equal the JAX package's native route."""
+    from nova_tpu_torch.ops import fold, spmv
+
+    jck, tck = keys
+    (jS, (jU1, jW1, jU2, jW2, jwit)), (tS, (tU1, tW1, tU2, tW2, twit)) = _fold_pair(19, jck)
+    assert tS.num_cons != tS.num_vars
+    monkeypatch.setattr(constants, "DEVICE_THRESHOLD", tS.num_cons)
+    monkeypatch.setattr(constants, "FOLD_DEVICE_THRESHOLD", tS.num_cons)
+    seen = {name: _counting(monkeypatch, mod, name) for mod, name in (
+        (fold, "commit_T_device"), (msm3, "msm_device3_mont"),
+        (spmv, "multiply_vec_device"), (msm2, "msm_device2"), (tn, "vec_cross_l"))}
+    if relaxed:
+        T, cT = tS.commit_T_relaxed(tck, tU1, tW1, tU2, tW2, 11)
+        jT, jcT = jS.commit_T_relaxed(jck, jU1, jW1, jU2, jW2, 11)
+    else:
+        T, cT = tS.commit_T(tck, tU1, tW1, tU2, twit, 11)
+        jT, jcT = jS.commit_T(jck, jU1, jW1, jU2, jwit, 11)
+    assert {k: len(v) for k, v in seen.items()} == {
+        "commit_T_device": 1, "msm_device3_mont": 1, "multiply_vec_device": 0,
+        "msm_device2": 0, "vec_cross_l": 0}
+    assert isinstance(T, FVec)
+    assert as_list(T) == as_list(jT)
+    assert cT.point.to_coordinates() == jcT.point.to_coordinates()
+
+
 def test_sat_checks_at_device_threshold(monkeypatch, keys):
     """At or above DEVICE_THRESHOLD the satisfiability checks and the replay
     check keep the device SpMV, though the native binding is built; an
